@@ -1,0 +1,5 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+paged_attention — one-token GQA decode over the paged KV pool (CUDA C++,
+                  ``repro_torch/csrc/paged_attention.cu``)
+"""

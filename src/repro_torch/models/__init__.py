@@ -1,0 +1,3 @@
+"""Model code of the port: the dense GQA family (smollm) over a paged pool."""
+from .common import resolve_device
+from .model import forward, init, param_specs

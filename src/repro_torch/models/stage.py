@@ -1,0 +1,158 @@
+"""Stage-level model execution: run a contiguous layer slice of the stack —
+counterpart of the paged paths of ``repro.models.stage``.
+
+Helix's MILP assigns each node a contiguous ``LayerRange``; a stage engine
+executes only those blocks, receiving token ids (first stage) or incoming
+activations and emitting activations (or sampling-ready logits at the final
+stage).
+
+Per-row entry masking: §3.3 *partial inference* means a request may enter a
+node mid-range, and per-node continuous batching mixes requests with
+different entry layers in one decode step.  Each block therefore applies
+only to rows with ``row_start <= layer``; masked rows pass their hidden state
+through unchanged.  Masked rows still run the block and write their
+(meaningless) K/V into their own pages — those entries are never read,
+because a request's entry layer is fixed for its lifetime at a node — and
+the pad rows of a fixed-size batch write into scratch page 0.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..configs.base import BlockSpec, ModelConfig
+from ..core.placement import LayerRange
+from .common import apply_norm, map_tree, torch_dtype
+from .model import _embed, _logits, check_ported
+from .paged import _block_decode_paged, _block_prefill_paged, is_paged_block
+
+
+# ---------------------------------------------------------------------------
+# Slice layout
+# ---------------------------------------------------------------------------
+
+def stage_blocks(cfg: ModelConfig, layers: LayerRange
+                 ) -> List[Tuple[int, BlockSpec]]:
+    """(global layer index, BlockSpec) for every block in the slice."""
+    blocks = cfg.blocks
+    if not (0 <= layers.start < layers.end <= cfg.num_layers):
+        raise ValueError(f"layer range {layers} outside [0, {cfg.num_layers})")
+    return [(l, blocks[l]) for l in range(layers.start, layers.end)]
+
+
+def stage_num_paged_layers(cfg: ModelConfig, layers: LayerRange) -> int:
+    return sum(is_paged_block(cfg, b) for _, b in stage_blocks(cfg, layers))
+
+
+def stage_params(cfg: ModelConfig, params, layers: LayerRange) -> Dict:
+    """The param subtree one stage needs: per-block params for
+    [start, end) plus the embedding table (first stage, and the last stage
+    when embeddings are tied), final norm + LM head (last stage).  Block
+    params are views into the stacked ``super`` tree."""
+    check_ported(cfg)
+    P = len(cfg.prologue)
+    pat = max(1, len(cfg.pattern))
+    first = layers.start == 0
+    last = layers.end == cfg.num_layers
+    out: Dict[str, Any] = {"blocks": []}
+    for l, _ in stage_blocks(cfg, layers):
+        if l < P:
+            out["blocks"].append(params["prologue"][l])
+        else:
+            r, i = divmod(l - P, pat)
+            out["blocks"].append(map_tree(lambda x, r=r: x[r],
+                                          params["super"][f"pos{i}"]))
+    if first or (last and cfg.tie_embeddings):
+        out["embed"] = params["embed"]
+    if last:
+        out["final_norm"] = params["final_norm"]
+        if not cfg.tie_embeddings:
+            out["lm_head"] = params["lm_head"]
+    return out
+
+
+def stage_cache_init_paged(cfg: ModelConfig, layers: LayerRange, batch: int,
+                           max_len: int) -> List:
+    """Per-block dense caches of the slice: ``{}`` for every paged block,
+    whose KV lives in the node's page pool (dense fallback caches of
+    hybrid stacks are not ported)."""
+    out = []
+    for l, b in stage_blocks(cfg, layers):
+        if not is_paged_block(cfg, b):
+            raise NotImplementedError(
+                f"layer {l} of {cfg.name} is not paged; dense fallback "
+                "caches are not ported yet")
+        out.append({})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Paged prefill / decode over the slice
+# ---------------------------------------------------------------------------
+
+def stage_prefill_chunk_paged(cfg: ModelConfig, sparams, layers: LayerRange,
+                              x, entry: int, start_pos, k_pages, v_pages,
+                              tables, *, active_blocks=None):
+    """Prefill one prompt chunk through blocks [entry, layers.end),
+    appending K/V to the node's pool.
+
+    x: (B,C) tokens when ``entry == 0`` else (B,C,d); start_pos: (B,)
+    absolute position of x[:, 0]; tables: (n_local_paged, B, NP) int32 in
+    local paged-layer order.  Returns ``(out, k_pages, v_pages)`` with
+    ``out`` = last-token logits (B,V) when the slice ends the model, else
+    the chunk's outgoing activations (B,C,d).
+    """
+    C = x.shape[1]
+    positions = start_pos[:, None] + torch.arange(C, device=start_pos.device)
+    h = _embed(cfg, sparams, x, positions) if entry == 0 else x
+    li = sum(is_paged_block(cfg, b) for l, b in stage_blocks(cfg, layers)
+             if l < entry)
+    for (l, b), p in zip(stage_blocks(cfg, layers), sparams["blocks"]):
+        if l < entry:
+            continue
+        if not is_paged_block(cfg, b):
+            raise ValueError(f"layer {l} of {cfg.name} is not paged; chunked "
+                             "stage prefill requires an all-paged slice")
+        h, k_pages, v_pages = _block_prefill_paged(
+            cfg, p, h, k_pages, v_pages, tables[li], positions,
+            active_blocks)
+        li += 1
+    if layers.end == cfg.num_layers:
+        h = apply_norm(cfg, sparams["final_norm"], h)
+        return _logits(cfg, sparams, h[:, -1:])[:, 0], k_pages, v_pages
+    return h, k_pages, v_pages
+
+
+def stage_decode_paged(cfg: ModelConfig, sparams, layers: LayerRange, tok,
+                       h_in, row_start, cache_pos, k_pages, v_pages, tables):
+    """One batched decode step over the slice with per-row entry masking.
+
+    tok: (B,) token ids (consumed only by rows entering at layer 0 —
+    possible only when ``layers.start == 0``); h_in: (B,1,d) incoming
+    activations; row_start: (B,) entry layer per row; cache_pos: (B,);
+    tables: (n_local_paged, B, NP) int32.  Every block runs the paged
+    attention kernel over its table row.  Returns ``(h_out (B,1,d),
+    logits (B,V) | None, k_pages, v_pages)`` — logits iff the slice ends
+    the model.
+    """
+    positions = cache_pos[:, None]
+    if layers.start == 0:
+        emb = _embed(cfg, sparams, tok[:, None], positions)
+        h = torch.where((row_start == 0)[:, None, None], emb,
+                        h_in.to(emb.dtype))
+    else:
+        h = h_in.to(torch_dtype(cfg.param_dtype))
+    li = 0
+    for (l, b), p in zip(stage_blocks(cfg, layers), sparams["blocks"]):
+        if not is_paged_block(cfg, b):
+            raise NotImplementedError(f"layer {l} of {cfg.name} is not paged")
+        h_new, k_pages, v_pages = _block_decode_paged(
+            cfg, p, h, k_pages, v_pages, tables[li], cache_pos)
+        li += 1
+        h = torch.where((row_start <= l)[:, None, None], h_new, h)
+    logits = None
+    if layers.end == cfg.num_layers:
+        hn = apply_norm(cfg, sparams["final_norm"], h)
+        logits = _logits(cfg, sparams, hn)[:, 0]
+    return h, logits, k_pages, v_pages

@@ -1,0 +1,588 @@
+"""ClusterRuntime: execute IWRR pipelines across per-node stage engines —
+counterpart of ``repro.serving.runtime`` (the in-process, virtual-clock
+path).
+
+The MILP places layer slices on nodes, max-flow IWRR walks per-request
+pipelines, and this module runs them: each node owns a ``PagedStageEngine``
+over its assigned ``LayerRange``, activations hop between nodes through the
+``InProcessTransport``, and every node continuously batches whatever
+stage-work (from any request, entering at any layer) is resident each
+iteration.  Every node's engine lives on the same device (one card, or the
+CPU when asked), as the reference runs every node in one process.
+
+Event loop: a virtual-clock heap of deliveries.  Prefill hops execute inline
+as they arrive, chunked across stages (chunk n+1 enters stage 0 as soon as
+chunk n left it); decode inputs accumulate in per-node inboxes and run as
+batched ``decode_stage`` calls per node per iteration.
+
+Pipelined decode: each request carries an in-flight window of up to
+``max_inflight`` decode passes launched but not yet confirmed.  After
+sampling token t the final stage launches the pass for t+1 straight to
+stage 0 while token t travels back; the coordinator confirms tokens
+strictly in order, applies the stop rules (eos / max_new_tokens / max_len)
+and cancels in-flight passes on completion or preemption by bumping the job
+epoch, which every delivery checks.  Launching reserves KV for the new
+position on every stage node up front.  ``max_inflight=1`` is the classic
+one-outstanding-token walk.
+
+Memory: admission takes a slot and the prompt's pages on every stage node
+up front; completion and preemption release KV on every node of the
+pipeline.  When a pool runs dry mid-decode the newest resident request is
+preempted pipeline-wide (recompute-on-readmit keeps its generated tokens).
+
+Scheduler feedback: after every iteration each node's true pool occupancy
+is written into the scheduler's ``KVEstimator`` (``_sync_kv``), and real
+pool capacities are installed at startup.
+
+Not ported yet (the arguments raise): speculative decoding, disaggregated
+prefill/decode, cancel, failover and ``apply_plan``, the wall-clock
+(realtime) loop, socket transports and workers, dense stage engines and
+int8 KV pools.  The in-process transport never duplicates or reorders a
+delivery, so the reference's delivery dedup and chunk reordering guards
+are not carried either.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+from collections import defaultdict, deque
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+
+from ..configs.base import ModelConfig
+from ..core.cluster import COORDINATOR
+from ..core.placement import LayerRange
+from ..models.common import resolve_device
+from ..models.paged import all_blocks_paged
+from ..models.stage import stage_num_paged_layers
+from .engine import EngineConfig, Request
+from .kv_pool import full_rectangle_pages, pages_for_vram
+from .stage_engine import DecodeItem, PagedStageEngine
+
+
+class InProcessTransport:
+    """Same-process transport: payloads are handed over by reference after
+    a modelled link delay, on the runtime's virtual clock (the runtime
+    binds ``schedule(delay_s, fn)`` at construction).  Counts hops and
+    bytes per (src, dst) link."""
+
+    def __init__(self, default_delay_s: float = 0.0):
+        self.default_delay_s = default_delay_s
+        self.transfers: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.bytes_sent: Dict[Tuple[str, str], float] = defaultdict(float)
+
+    def bind(self, schedule: Callable[[float, Callable[[], None]], None]
+             ) -> None:
+        self._schedule = schedule
+
+    def send(self, src: str, dst: str, payload: Any, nbytes: float,
+             deliver: Callable[[Any], None]) -> None:
+        self.transfers[(src, dst)] += 1
+        self.bytes_sent[(src, dst)] += nbytes
+        self._schedule(self.default_delay_s, lambda: deliver(payload))
+
+    def describe(self) -> str:
+        frags = [f"{s}->{d}={n}/{self.bytes_sent[(s, d)]:.0f}B"
+                 for (s, d), n in sorted(self.transfers.items())]
+        return "hops[" + ", ".join(frags) + "]"
+
+
+@dataclasses.dataclass
+class _Job:
+    req: Request
+    pipe: Any = None                 # RequestPipeline (kept across preempt)
+    slots: Dict[str, int] = dataclasses.field(default_factory=dict)
+    pos: int = 0                     # tokens confirmed resident in caches
+    epoch: int = 0                   # bumped on preempt/requeue/complete:
+                                     # stale in-flight messages die
+    seq: int = -1                    # admission order (preemption victims)
+    # -- in-flight decode window (reset on every (re)admission) ----------
+    next_j: int = 0                  # output index the next launched pass
+                                     # will produce
+    next_pos: int = 0                # cache position of the next pass
+    inbox: Dict[int, int] = dataclasses.field(default_factory=dict)
+                                     # out-of-order sampled tokens by index
+
+    @property
+    def resumed(self) -> bool:
+        return bool(self.req.output)
+
+    @property
+    def inflight(self) -> int:
+        """Decode passes launched whose token the coordinator has not yet
+        confirmed."""
+        return self.next_j - len(self.req.output)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP queue 1: {item})")
+
+
+class ClusterRuntime:
+    """Orchestrates one paged stage engine per placed node (see the module
+    docstring).
+
+    ``plan`` is a ``repro_torch.core.planner.Plan``; engines are built from
+    its placement on ``device``, with pools sized from each node's own VRAM
+    (capped at the full rectangle, floored at one max_len request) unless
+    ``pool_pages`` names a node's page count.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, plan,
+                 engine_cfg: EngineConfig, *, paged: bool = True,
+                 page_size: int = 16, kv_dtype: Optional[str] = None,
+                 pool_pages: Optional[Mapping[str, int]] = None,
+                 transport: Optional[InProcessTransport] = None,
+                 rng_seed: int = 0, max_inflight: int = 1, device="cuda",
+                 engine_factory=None, draft_cfg=None, draft_params=None,
+                 realtime: Optional[bool] = None):
+        if max_inflight < 1:
+            raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
+        if not paged:
+            raise _not_ported("the dense StageEngine", "dense engines")
+        if kv_dtype == "int8":
+            raise _not_ported("int8 KV serving", "int8 KV serving")
+        if draft_cfg is not None or draft_params is not None:
+            raise _not_ported("speculative decoding", "speculation")
+        if realtime:
+            raise _not_ported("the wall-clock loop", "front door")
+        if engine_factory is not None:
+            raise _not_ported("engine factories (remote workers)",
+                              "sockets / worker")
+        if (plan.placement.meta or {}).get("roles"):
+            raise _not_ported("disaggregated placements", "disaggregation")
+        if not all_blocks_paged(cfg):
+            raise _not_ported(f"serving {cfg.name} (not all-paged)",
+                              "model breadth")
+        self.cfg = cfg
+        self.params = params
+        self.ec = engine_cfg
+        self.device = resolve_device(device)
+        self.max_inflight = max_inflight
+        self.page_size = page_size
+        self.pool_pages = dict(pool_pages or {})
+        self.rng_seed = rng_seed
+        self.cluster = plan.cluster
+        self.placement = plan.placement
+        self.profile = plan.model
+        if plan.model.num_layers != cfg.num_layers:
+            raise ValueError(f"plan covers {plan.model.num_layers} layers; "
+                             f"{cfg.name} has {cfg.num_layers}")
+        self.scheduler = plan.make_scheduler()
+        self.transport = transport or InProcessTransport()
+        self.transport.bind(lambda d, fn: self._push(self._now + d, fn))
+
+        self.engines: Dict[str, PagedStageEngine] = {}
+        for node, rng in sorted(self.placement.assignment.items()):
+            self.engines[node] = self._make_engine(node, rng)
+        self._sync_kv(capacities=True)
+
+        self.queue: deque = deque()      # _Job awaiting admission
+        self.jobs: Dict[int, _Job] = {}  # request_id -> active job
+        self._ready: Dict[str, List[dict]] = defaultdict(list)
+        self._events: List = []
+        self._eseq = 0
+        self._jseq = 0
+        self._now = 0.0
+        # request_id -> the pipeline it was (last) served on
+        self.served: Dict[int, Any] = {}
+
+    # -- engine construction ------------------------------------------------
+    def _pool_pages(self, node: str, rng: LayerRange) -> int:
+        """Pool size for a node's slice."""
+        if node in self.pool_pages:
+            return self.pool_pages[node]
+        n_paged = stage_num_paged_layers(self.cfg, rng)
+        rect = full_rectangle_pages(self.cfg, max_batch=self.ec.max_batch,
+                                    max_len=self.ec.max_len,
+                                    page_size=self.page_size,
+                                    paged_layers=n_paged)
+        pages = pages_for_vram(self.cfg, self.cluster.nodes[node].vram_bytes,
+                               page_size=self.page_size,
+                               layers_on_node=rng.num_layers, max_pages=rect)
+        # floor: one full-budget request must always fit
+        blocks = -(-self.ec.max_len // self.page_size)
+        return max(pages, 1 + blocks * n_paged)
+
+    def _make_engine(self, node: str, rng: LayerRange) -> PagedStageEngine:
+        return PagedStageEngine(self.cfg, self.params, rng, self.ec,
+                                num_pages=self._pool_pages(node, rng),
+                                page_size=self.page_size,
+                                rng_seed=self.rng_seed, device=self.device)
+
+    # -- event machinery ----------------------------------------------------
+    def _push(self, t: float, fn: Callable[[], None]) -> None:
+        self._eseq += 1
+        heapq.heappush(self._events, (t, self._eseq, fn))
+
+    def _send(self, src: str, dst: str, payload, nbytes: float,
+              deliver: Callable[[Any], None]) -> None:
+        self.transport.send(src, dst, payload, nbytes, deliver)
+
+    def _act_bytes(self, n_tokens: int) -> float:
+        elt = {"bfloat16": 2, "float32": 4}[self.cfg.param_dtype]
+        return float(n_tokens * self.cfg.d_model * elt)
+
+    # -- public API ---------------------------------------------------------
+    def clock(self) -> float:
+        """Seconds on the runtime's virtual event clock; every per-request
+        timestamp is stamped from here."""
+        return self._now
+
+    def submit(self, req: Request) -> None:
+        """Queue a request.  Raises ``ValueError`` for requests that could
+        never serve."""
+        if len(req.prompt) == 0:
+            raise ValueError("empty prompt")
+        if len(req.prompt) > self.ec.max_len:
+            raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds "
+                             f"max_len {self.ec.max_len}; refusing to "
+                             "truncate")
+        req.submitted_s = self.clock()
+        self.queue.append(_Job(req))
+
+    def _idle(self) -> bool:
+        return not (self.queue or self.jobs or self._events or self._ready)
+
+    def run_until_done(self, max_iters: int = 100000) -> None:
+        for _ in range(max_iters):
+            if self._idle():
+                return
+            if self.step():
+                continue
+            raise RuntimeError(
+                "runtime stalled: queued requests cannot be admitted "
+                "(cluster slots/pools too small?); " + self._state())
+        if self._idle():
+            return                   # finished exactly on the last step
+        raise RuntimeError(
+            f"not done after {max_iters} iterations; " + self._state())
+
+    def _state(self) -> str:
+        """Queue / in-flight diagnostics for stall and iteration-budget
+        errors."""
+        windows = {j.req.request_id: f"{len(j.req.output)}+{j.inflight}"
+                   for j in self.jobs.values()}
+        ready = {n: len(v) for n, v in self._ready.items() if v}
+        return (f"queued={len(self.queue)} "
+                f"in_flight(confirmed+window)={windows} "
+                f"pending_events={len(self._events)} ready={ready} "
+                f"now={self._now:.6f} transport={self.transport.describe()}")
+
+    def step(self) -> bool:
+        """One runtime iteration: admit, drain deliveries due now, then one
+        batched decode per node with resident stage-work.  Returns whether
+        anything progressed."""
+        progressed = self._admit()
+        if self._events:
+            self._now = max(self._now, self._events[0][0])
+            while self._events and self._events[0][0] <= self._now + 1e-12:
+                _, _, fn = heapq.heappop(self._events)
+                fn()
+                progressed = True
+        for node in [n for n, v in self._ready.items() if v]:
+            work = self._ready.pop(node)
+            work = [w for w in work if w["job"].epoch == w["epoch"]]
+            if work:
+                self._decode_node(node, work)
+                progressed = True
+        self._sync_kv()
+        return progressed
+
+    # -- KV feedback --------------------------------------------------------
+    def _sync_kv(self, capacities: bool = False) -> None:
+        kv = self.scheduler.kv
+        if kv is None:
+            return
+        for node, eng in self.engines.items():
+            if node not in kv.capacity_tokens:
+                continue
+            if capacities:
+                kv.capacity_tokens[node] = float(eng.kv_tokens_capacity())
+            kv.sync(node, float(eng.kv_tokens_used()))
+
+    # -- admission ----------------------------------------------------------
+    def _prefill_tokens(self, job: _Job) -> np.ndarray:
+        """Tokens to prefill: the prompt, plus — after preemption — all
+        generated output but the last token (recompute; the last token
+        restarts decode)."""
+        prompt = np.asarray(job.req.prompt, np.int32)
+        if len(job.req.output) > 1:
+            prompt = np.concatenate(
+                [prompt, np.asarray(job.req.output[:-1], np.int32)])
+        return prompt
+
+    def _admit(self) -> bool:
+        progressed = False
+        while self.queue:
+            job = self.queue[0]
+            if job.pipe is None:
+                try:
+                    job.pipe = self.scheduler.schedule()
+                except RuntimeError:
+                    break               # no route: wait
+            S = len(self._prefill_tokens(job))
+            need = min(S + 1, self.ec.max_len)
+            taken: List[Tuple[str, int]] = []
+            ok = True
+            for node in dict.fromkeys(st.node for st in job.pipe.stages):
+                eng = self.engines.get(node)
+                slot = eng.alloc_slot(job.req.request_id) if eng else None
+                if slot is None or not eng.ensure(slot, need):
+                    if slot is not None:
+                        eng.free_slot(slot)
+                    ok = False
+                    break
+                taken.append((node, slot))
+            if not ok:
+                for node, slot in taken:
+                    self.engines[node].release(slot)
+                break                   # FIFO: wait for running work to free
+            self.queue.popleft()
+            job.slots = dict(taken)
+            job.pos = S
+            # open the in-flight window: the first decode pass consumes the
+            # last known token at position S and produces output index
+            # ``next_j`` (a fresh request's prefill token is index 0)
+            job.next_j = len(job.req.output) if job.resumed else 1
+            job.next_pos = S
+            job.inbox = {}
+            job.seq = self._jseq
+            self._jseq += 1
+            self.jobs[job.req.request_id] = job
+            self.served[job.req.request_id] = job.pipe
+            self._send_chunk(job, 0)
+            progressed = True
+        return progressed
+
+    def _send_chunk(self, job: _Job, off: int) -> None:
+        """Send the prompt chunk starting at ``off`` to stage 0."""
+        tokens = self._prefill_tokens(job)
+        chunk = tokens[off:off + max(1, self.ec.prompt_len)]
+        self._send(COORDINATOR, job.pipe.stages[0].node, chunk,
+                   len(chunk) * self.profile.token_bytes,
+                   self._hop(job, 0, off))
+
+    # -- prefill hops -------------------------------------------------------
+    def _hop(self, job: _Job, si: int, off: int) -> Callable[[Any], None]:
+        epoch = job.epoch
+        return lambda x: (self._prefill_exec(job, epoch, si, x, off)
+                          if job.epoch == epoch else None)
+
+    def _prefill_exec(self, job: _Job, epoch: int, si: int, x,
+                      off: int) -> None:
+        stages = job.pipe.stages
+        st = stages[si]
+        eng = self.engines[st.node]
+        n_tok = min(max(1, self.ec.prompt_len), job.pos - off)
+        last = si == len(stages) - 1
+        out = eng.prefill_chunk(job.slots[st.node], x, st.layers.start, off)
+        if not last:
+            self._send(st.node, stages[si + 1].node, out,
+                       self._act_bytes(n_tok), self._hop(job, si + 1, off))
+        if si == 0 and off + n_tok < job.pos:
+            # stage 0 freed: stream the next chunk in behind this one
+            self._send_chunk(job, off + n_tok)
+        if last and off + n_tok >= job.pos:
+            # final chunk left the final stage: out is last-token logits
+            if job.resumed:
+                tok = job.req.output[-1]      # sampled before eviction
+            else:
+                tok = eng.sample(out, job.req.temperature)
+            self._send(st.node, COORDINATOR, tok, self.profile.token_bytes,
+                       lambda t: self._on_first_token(job, epoch, t))
+            # at depth >= 2 decode starts here — the first pass leaves for
+            # stage 0 while the prefill token travels to the coordinator;
+            # depth 1 always waits for the coordinator
+            if self.max_inflight > 1:
+                self._maybe_launch(job, st.node, int(tok), job.next_j)
+
+    # -- token arrivals (coordinator) ----------------------------------------
+    def _confirm(self, job: _Job, tok: int) -> None:
+        """Confirm ONE token at the coordinator: append it to the visible
+        output and stamp the first-token time."""
+        req = job.req
+        req.output.append(int(tok))
+        if req.first_token_s is None:
+            req.first_token_s = self.clock()
+
+    def _stop_reason(self, job: _Job) -> Optional[str]:
+        req = job.req
+        if int(req.output[-1]) == self.ec.eos_token:
+            return "stop"
+        if len(req.output) >= req.max_new_tokens:
+            return "length"
+        if job.pos >= self.ec.max_len:
+            return "length"
+        return None
+
+    def _on_first_token(self, job: _Job, epoch: int, tok: int) -> None:
+        """Prefill's token reached the coordinator (resumed requests re-send
+        their last confirmed token instead of sampling a new one)."""
+        if job.epoch != epoch:
+            return
+        req = job.req
+        if not job.resumed:
+            self._confirm(job, int(tok))
+            reason = self._stop_reason(job)
+            if reason is not None:
+                self._complete(job, reason)
+                return
+        # depth 1 (or a closed window at prefill time): the first decode
+        # pass launches from here; a no-op if the final stage launched it
+        self._maybe_launch(job, COORDINATOR, int(req.output[-1]),
+                           len(req.output))
+        self._drain_inbox(job)
+
+    def _on_decode_token(self, job: _Job, epoch: int, j: int, tok: int
+                         ) -> None:
+        """A sampled token arrived.  Confirm strictly in output order —
+        arrivals ahead of the expected index wait in the job's inbox."""
+        if job.epoch != epoch:
+            return
+        job.inbox[j] = int(tok)
+        self._drain_inbox(job)
+
+    def _drain_inbox(self, job: _Job) -> None:
+        req = job.req
+        while len(req.output) in job.inbox:
+            t = job.inbox.pop(len(req.output))
+            self._confirm(job, t)
+            job.pos += 1
+            reason = self._stop_reason(job)
+            if reason is not None:
+                self._complete(job, reason)
+                return
+            self._maybe_launch(job, COORDINATOR, t, len(req.output))
+
+    # -- decode pass launch (window) -----------------------------------------
+    def _maybe_launch(self, job: _Job, src: str, tok: int, expect_j: int
+                      ) -> None:
+        """Launch the decode pass producing output index ``expect_j`` if no
+        one else has (the final stage races the coordinator for it), the
+        hard budgets allow it to ever be confirmed, and the in-flight window
+        has room."""
+        req = job.req
+        if req.done or job.next_j != expect_j:
+            return
+        if job.next_j >= req.max_new_tokens or job.next_pos >= self.ec.max_len:
+            return                   # pass could never be confirmed
+        if job.inflight >= self.max_inflight:
+            return                   # window full: coordinator relaunches
+        pos, j, epoch = job.next_pos, job.next_j, job.epoch
+        if not self._reserve_inflight(job, pos + 1):
+            return                   # job itself was preempted reserving
+        job.next_j = j + 1
+        job.next_pos = pos + 1
+        self._send(src, job.pipe.stages[0].node, int(tok),
+                   self.profile.token_bytes,
+                   lambda t, e=epoch, p=pos, jj=j:
+                   self._enqueue_decode(job, e, 0, int(t), None, p, jj))
+
+    def _enqueue_decode(self, job: _Job, epoch: int, si: int, tok: int,
+                        h, pos: int, j: int) -> None:
+        if job.epoch != epoch:
+            return
+        node = job.pipe.stages[si].node
+        self._ready[node].append(dict(job=job, epoch=epoch, si=si, tok=tok,
+                                      h=h, pos=pos, j=j))
+
+    def _grow_or_preempt(self, eng, node: str, job: _Job, tokens: int
+                         ) -> bool:
+        """Grow ``job``'s KV on ``node`` to hold ``tokens``, preempting the
+        newest resident request (pipeline-wide) while the pool is dry.
+        Returns False when the victim chain reached ``job`` itself."""
+        epoch = job.epoch
+        while not eng.ensure(job.slots[node], tokens):
+            live = [j for j in self.jobs.values() if node in j.slots]
+            victim = max(live, key=lambda j: j.seq)
+            self._preempt(victim)
+            if job.epoch != epoch:
+                return False
+        return True
+
+    def _reserve_inflight(self, job: _Job, tokens: int) -> bool:
+        """Reserve KV for an in-flight token on every stage node at launch;
+        returns False when the job itself got preempted making room."""
+        for st in job.pipe.stages:
+            if st.node not in job.slots:
+                return False
+            if not self._grow_or_preempt(self.engines[st.node], st.node, job,
+                                         tokens):
+                return False
+        return True
+
+    # -- decode (per-node continuous batching) -------------------------------
+    def _decode_node(self, node: str, work: List[dict]) -> None:
+        """All stage-work resident at ``node`` this iteration, run as
+        batched decode passes of at most ``max_batch`` items."""
+        eng = self.engines[node]
+        # grow pools oldest-first, as a backstop: launch-time reservation
+        # makes this a no-op unless another request raced the pool dry
+        for w in sorted(work, key=lambda w: w["job"].seq):
+            job = w["job"]
+            if job.epoch != w["epoch"]:
+                continue
+            self._grow_or_preempt(eng, node, job, w["pos"] + 1)
+        while work:
+            batch = [w for w in work[:self.ec.max_batch]
+                     if w["job"].epoch == w["epoch"]]
+            work = work[self.ec.max_batch:]
+            if not batch:
+                continue
+            items = [DecodeItem(slot=w["job"].slots[node], pos=w["pos"],
+                                entry=w["job"].pipe.stages[w["si"]]
+                                .layers.start,
+                                token=w["tok"], h=w["h"]) for w in batch]
+            outs = eng.decode_stage(items)
+            for w, out in zip(batch, outs):
+                job, si, epoch, j = w["job"], w["si"], w["epoch"], w["j"]
+                if si == len(job.pipe.stages) - 1:
+                    tok = eng.sample(out.logits, job.req.temperature)
+                    self._send(node, COORDINATOR, (j, tok),
+                               self.profile.token_bytes,
+                               lambda p, jb=job, e=epoch:
+                               self._on_decode_token(jb, e, p[0], p[1]))
+                    # pipelined: token j leaves for the coordinator while
+                    # the pass for j+1 leaves for stage 0
+                    self._maybe_launch(job, node, tok, j + 1)
+                else:
+                    nxt = job.pipe.stages[si + 1].node
+                    self._send(node, nxt, out.h, self._act_bytes(1),
+                               lambda h, jb=job, e=epoch, s=si + 1,
+                               p=w["pos"], jj=j:
+                               self._enqueue_decode(jb, e, s, 0, h, p, jj))
+
+    # -- completion / preemption ---------------------------------------------
+    def _release_all(self, job: _Job) -> None:
+        for node, slot in job.slots.items():
+            self.engines[node].release(slot)
+        job.slots = {}
+
+    def _complete(self, job: _Job, reason: str) -> None:
+        req = job.req
+        req.done = True
+        req.finish_reason = reason
+        req.finished_s = self.clock()
+        # cancel in-flight passes (a stop confirmed while token t+1 is
+        # mid-pipeline): the epoch bump kills their deliveries
+        job.epoch += 1
+        job.inbox = {}
+        self._release_all(job)
+        self.jobs.pop(req.request_id, None)
+
+    def _preempt(self, job: _Job) -> None:
+        """Pool exhausted: evict pipeline-wide, keep generated tokens,
+        requeue at the front (recompute-on-readmit, same pipeline)."""
+        job.epoch += 1               # cancels every in-flight pass
+        job.inbox = {}
+        self._release_all(job)
+        self.jobs.pop(job.req.request_id, None)
+        job.req.preemptions += 1
+        self.queue.appendleft(job)
+
+    # -- introspection --------------------------------------------------------
+    def pool_pages_used(self) -> Dict[str, int]:
+        return {n: e.pool_used() for n, e in self.engines.items()}

@@ -1,0 +1,234 @@
+"""Per-node paged stage engine: the execution half of a Helix compute node —
+counterpart of ``repro.serving.stage_engine``.
+
+A stage engine holds only the params (``models.stage.stage_params``) and KV
+for one node's assigned ``LayerRange`` and exposes the stage-level API the
+``ClusterRuntime`` drives:
+
+  prefill_chunk(slot, x, entry, start)   chunked paged prefill of one request
+  decode_stage(items)              ONE batched decode step over whatever
+                                   stage-work is resident this iteration —
+                                   per-node continuous batching; items may
+                                   mix requests entering at different layers
+  sample(logits, temperature)      final-stage token sampling
+
+Slot mechanics: the page pool's block table carries ``max_batch + 1`` rows;
+the extra row is scratch — decode batches are padded to a fixed width with
+scratch rows, whose writes land in page 0, which nothing ever reads.
+
+Activations between stages stay device tensors; logits leave the device as
+float32 numpy rows for sampling.  Not ported yet: the dense ``StageEngine``,
+speculative verify items and ``rollback``, and the KV handoff
+(``export_kv`` / ``import_kv``) of disaggregated serving.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.placement import LayerRange
+from ..models.common import map_tree, resolve_device, torch_dtype
+from ..models.paged import all_blocks_paged
+from ..models.stage import (stage_decode_paged, stage_num_paged_layers,
+                            stage_params, stage_prefill_chunk_paged)
+from .engine import EngineConfig, _active_blocks_bucket
+from .kv_pool import PagePool, full_rectangle_pages
+from .sampling import sample_token
+
+
+@dataclasses.dataclass
+class DecodeItem:
+    """One request's decode-step input resident at a node this iteration:
+    ``token`` (entry 0) or ``h``, the (1, 1, d) incoming activations."""
+
+    slot: int
+    pos: int                      # absolute position of the token
+    entry: int                    # request's entry layer at this node
+    token: int = 0                # consumed only when entry == 0
+    h: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class DecodeOut:
+    h: Optional[torch.Tensor]     # (1, 1, d) outgoing activations
+    logits: Optional[np.ndarray]  # (V,) float32 at the final stage
+
+
+class _StageEngineBase:
+    """Slot bookkeeping, batch assembly and sampling of a stage engine."""
+
+    def __init__(self, cfg: ModelConfig, params, layers: LayerRange,
+                 engine_cfg: EngineConfig, rng_seed: int = 0,
+                 device="cuda"):
+        self.cfg = cfg
+        self.layers = layers
+        self.ec = engine_cfg
+        self.device = resolve_device(device)
+        # each node materializes only its share of the stack
+        self.sparams = map_tree(lambda t: t.to(self.device),
+                                stage_params(cfg, params, layers))
+        self.is_first = layers.start == 0
+        self.is_last = layers.end == cfg.num_layers
+        self.slots: List[Optional[int]] = [None] * engine_cfg.max_batch
+        self._scratch = engine_cfg.max_batch   # padding row, never allocated
+        self._rng = np.random.RandomState(rng_seed)
+
+    # -- slots ----------------------------------------------------------
+    def alloc_slot(self, request_id: int) -> Optional[int]:
+        for i, r in enumerate(self.slots):
+            if r is None:
+                self.slots[i] = request_id
+                return i
+        return None
+
+    def free_slot(self, slot: int) -> None:
+        self.slots[slot] = None
+
+    # -- sampling (final stage) -----------------------------------------
+    def sample(self, logits: np.ndarray, temperature: float) -> int:
+        return int(sample_token(logits, temperature, self._rng))
+
+    # -- batch assembly ---------------------------------------------------
+    def _assemble(self, items: List[DecodeItem]):
+        """Pad ``items`` to ``max_batch + 1`` rows.  Returns the host slot
+        index array and device tensors (tok, pos, entry, h_in); pad rows
+        use the scratch slot, position 0 and an entry past the slice, so
+        every block masks them."""
+        B = self.ec.max_batch + 1
+        if not 0 < len(items) <= self.ec.max_batch:
+            raise ValueError(f"{len(items)} decode items for "
+                             f"{self.ec.max_batch} slots")
+        # one batched step writes each row's KV once, so a batch holding
+        # tokens t and t+1 of one request would lose t's write
+        slots = [it.slot for it in items]
+        if len(set(slots)) != len(slots):
+            raise ValueError(
+                "duplicate cache slot in one decode batch: in-flight tokens "
+                "of a request must decode in separate, position-ordered "
+                f"batches (slots={slots})")
+        d = self.cfg.d_model
+        idx = np.full((B,), self._scratch, np.int64)
+        tok = np.zeros((B,), np.int64)
+        pos = np.zeros((B,), np.int64)
+        entry = np.full((B,), self.layers.end, np.int64)  # pads: all masked
+        h_in = torch.zeros((B, 1, d), dtype=torch_dtype(self.cfg.param_dtype),
+                           device=self.device)
+        for i, it in enumerate(items):
+            idx[i] = it.slot
+            tok[i] = it.token
+            pos[i] = it.pos
+            entry[i] = it.entry
+            if it.h is not None:
+                h_in[i] = it.h.reshape(1, d)
+        dev = self.device
+        return (idx, torch.from_numpy(tok).to(dev),
+                torch.from_numpy(pos).to(dev),
+                torch.from_numpy(entry).to(dev), h_in)
+
+    # -- decode orchestration ---------------------------------------------
+    def _decode_step(self, items: List[DecodeItem]):
+        """One batched decode step.  Returns (h (B,1,d) device tensor,
+        logits (B,V) float32 numpy | None) over the padded batch."""
+        raise NotImplementedError
+
+    def decode_stage(self, items: List[DecodeItem]) -> List[DecodeOut]:
+        """ONE batched decode step over the stage-work resident this
+        iteration (one token per request)."""
+        h, l = self._decode_step(items)
+        return [DecodeOut(h=h[i:i + 1],
+                          logits=l[i] if l is not None else None)
+                for i in range(len(items))]
+
+
+class PagedStageEngine(_StageEngineBase):
+    """Paged-KV stage engine: the node's paged blocks share one ``PagePool``
+    sized from its VRAM.  Decode runs the paged attention kernel in every
+    block; prefill is chunked (all-paged stacks only)."""
+
+    def __init__(self, cfg: ModelConfig, params, layers: LayerRange,
+                 engine_cfg: EngineConfig, *, num_pages: Optional[int] = None,
+                 page_size: int = 16, rng_seed: int = 0, device="cuda"):
+        super().__init__(cfg, params, layers, engine_cfg, rng_seed, device)
+        ec = engine_cfg
+        self.n_paged = stage_num_paged_layers(cfg, layers)
+        if self.n_paged == 0 or not all_blocks_paged(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: only all-paged stacks are ported (dense and "
+                "hybrid stage engines are ROADMAP queue 1 work)")
+        if num_pages is None:
+            num_pages = full_rectangle_pages(cfg, max_batch=ec.max_batch,
+                                             max_len=ec.max_len,
+                                             page_size=page_size,
+                                             paged_layers=self.n_paged)
+        # the scratch slot never allocates, so the pool only needs capacity
+        # for the real max_batch; the extra table column stays on page 0
+        self.pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
+                             max_batch=ec.max_batch + 1,
+                             max_seq_len=ec.max_len,
+                             paged_layers=self.n_paged, device=self.device)
+        self.decode_steps = 0      # batched decode passes run on this node
+
+    # -- pool ------------------------------------------------------------
+    def ensure(self, slot: int, tokens: int) -> bool:
+        return self.pool.ensure(slot, tokens)
+
+    def release(self, slot: int) -> None:
+        self.pool.release(slot)
+        self.free_slot(slot)
+
+    def kv_tokens_used(self) -> int:
+        return self.pool.tokens_used
+
+    def kv_tokens_capacity(self) -> int:
+        return self.pool.tokens_capacity
+
+    def pool_used(self) -> int:
+        """Allocated page count (scratch page excluded)."""
+        return self.pool.used
+
+    def _table(self, rows) -> torch.Tensor:
+        """Block-table rows for a step, copied host -> device:
+        (n_paged, len(rows), NP) int32."""
+        return torch.from_numpy(
+            np.ascontiguousarray(self.pool.table[:, rows])).to(self.device)
+
+    # -- prefill ---------------------------------------------------------
+    @torch.no_grad()
+    def prefill_chunk(self, slot: int, x, entry: int, start: int):
+        """One prompt chunk through the slice.  x: (C,) tokens or (1, C, d)
+        activations.  Returns chunk activations (1, C, d) as a device
+        tensor, or last-token logits (V,) float32 numpy at the final
+        stage."""
+        if entry == 0:
+            xin = torch.as_tensor(np.asarray(x, np.int64),
+                                  device=self.device)[None, :]
+        else:
+            xin = x.to(self.device)
+        C = xin.shape[1]
+        pool = self.pool
+        n_act = _active_blocks_bucket(start + C, pool.page,
+                                      pool.blocks_per_seq)
+        start_t = torch.tensor([start], dtype=torch.int64, device=self.device)
+        out, pool.k, pool.v = stage_prefill_chunk_paged(
+            self.cfg, self.sparams, self.layers, xin, entry, start_t,
+            pool.k, pool.v, self._table(slice(slot, slot + 1)),
+            active_blocks=n_act)
+        if self.is_last:
+            return out[0].float().cpu().numpy()
+        return out
+
+    # -- decode ----------------------------------------------------------
+    @torch.no_grad()
+    def _decode_step(self, items: List[DecodeItem]):
+        idx, tok, pos, entry, h_in = self._assemble(items)
+        pool = self.pool
+        h, logits, pool.k, pool.v = stage_decode_paged(
+            self.cfg, self.sparams, self.layers, tok, h_in, entry, pos,
+            pool.k, pool.v, self._table(idx))
+        self.decode_steps += 1
+        return (h, logits.float().cpu().numpy()
+                if logits is not None else None)

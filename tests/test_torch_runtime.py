@@ -1,0 +1,172 @@
+"""The port's Helix serving path against the JAX package (f32, CPU).
+
+The port's ``ClusterRuntime`` over paged stage engines must produce greedy
+tokens *equal* to the reference's single full-model engine (the
+``reference`` fixture) on multi-stage placements, and drain every node's
+pool; the copied planner must place like the reference's; and the port's
+serve driver must run end to end on the CPU.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import (ModelProfile as JModelProfile,
+                        make_serving_cluster as j_make_serving_cluster,
+                        plan as jplan)
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.core import (LayerRange, ModelProfile, Placement,
+                              make_serving_cluster, plan)
+from repro_torch.core.cluster import full_mesh_cluster
+from repro_torch.serving.engine import EngineConfig, Request
+from repro_torch.serving.runtime import ClusterRuntime, InProcessTransport
+
+from harness import EC as JEC, make_plan as jmake_plan, pool_for_one_request
+
+EC = EngineConfig(**dataclasses.asdict(JEC))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def port_model(gqa_model):
+    jcfg, jparams = gqa_model
+    cfg = dataclasses.replace(get_smoke_config("smollm_360m"),
+                              param_dtype=jcfg.param_dtype,
+                              compute_dtype=jcfg.compute_dtype)
+    return cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                                device="cpu")
+
+
+def port_plan(cfg, assignment):
+    """The port's counterpart of ``harness.make_plan``: an explicit layer
+    assignment on a full-mesh A100 cluster, planned by the copied core."""
+    placement = Placement({n: LayerRange(*r) for n, r in assignment.items()},
+                          cfg.num_layers)
+    assert placement.validate() == []
+    profile = ModelProfile.from_dims(
+        cfg.name, cfg.num_layers, cfg.d_model, max(cfg.d_ff, 1),
+        cfg.vocab_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cluster = full_mesh_cluster(len(assignment), bandwidth=10e9 / 8,
+                                latency_s=1e-3)
+    return plan(cluster, profile, placement=placement)
+
+
+def serve(cfg, params, p, prompts, **kw):
+    rt = ClusterRuntime(cfg, params, p, EC, device="cpu", **kw)
+    reqs = [Request(i, pr, max_new_tokens=6) for i, pr in enumerate(prompts)]
+    for r in reqs:
+        rt.submit(r)
+    rt.run_until_done()
+    assert all(r.done for r in reqs)
+    return rt, reqs
+
+
+def assert_drained(rt):
+    used = rt.pool_pages_used()
+    assert used and all(u == 0 for u in used.values()), used
+
+
+CASES = {
+    "2stage": ({"n0": (0, 2), "n1": (2, 4)}, 1, 0.0),
+    "3stage": ({"n0": (0, 2), "n1": (2, 3), "n2": (3, 4)}, 1, 2e-3),
+    "3stage-depth2": ({"n0": (0, 1), "n1": (1, 3), "n2": (3, 4)}, 2, 2e-3),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_cluster_runtime_matches_reference_tokens(gqa_model, port_model,
+                                                  reference, case):
+    """Greedy tokens equal the reference's exactly; the port's plan equals
+    the reference's ``make_plan`` plan on the same assignment."""
+    assignment, depth, delay = CASES[case]
+    cfg, params = port_model
+    prompts, ref = reference
+    p = port_plan(cfg, assignment)
+    jp = jmake_plan(gqa_model[0], assignment)
+    assert {n: (r.start, r.end) for n, r in p.placement.assignment.items()} \
+        == {n: (r.start, r.end) for n, r in jp.placement.assignment.items()}
+    assert p.throughput == pytest.approx(jp.throughput, rel=1e-12)
+    rt, reqs = serve(cfg, params, p, prompts, max_inflight=depth,
+                     transport=InProcessTransport(default_delay_s=delay))
+    assert [r.output for r in reqs] == ref
+    assert_drained(rt)
+    for i in range(len(prompts)):
+        assert len(rt.served[i].stages) == len(assignment)
+    # each engine holds only its slice
+    assert sorted(len(e.sparams["blocks"]) for e in rt.engines.values()) == \
+        sorted(b - a for a, b in assignment.values())
+
+
+def test_preemption_keeps_tokens(port_model, reference):
+    """A pool that fits one full-budget request forces preemption and
+    recompute-on-readmit; the tokens stay the reference's."""
+    cfg, params = port_model
+    prompts, ref = reference
+    assignment = {"n0": (0, 2), "n1": (2, 4)}
+    p = port_plan(cfg, assignment)
+    from repro.core import LayerRange as JLayerRange
+    pages = pool_for_one_request(cfg, JLayerRange(2, 4), ec=JEC)
+    rt, reqs = serve(cfg, params, p, prompts, pool_pages={"n1": pages})
+    assert [r.output for r in reqs] == ref
+    assert sum(r.preemptions for r in reqs) > 0
+    assert_drained(rt)
+
+
+def test_planner_copy_places_like_reference():
+    """MILP placement of the copied core on a derated A100+L4 serving
+    cluster equals the reference planner's, and so do its flows."""
+    dims = ("toy", 8, 1024, 4096, 32000, 8, 128)
+    jprof = JModelProfile.from_dims(*dims)
+    prof = ModelProfile.from_dims(*dims)
+    kw = dict(devs=["A100", "L4"], force_stages=2)
+    from repro.core import MILPOptions as JOpt
+    from repro_torch.core import MILPOptions
+    opt = dict(time_limit_s=10.0, lns_rounds=0, fgls_rounds=20)
+    jp = jplan(j_make_serving_cluster(jprof, **kw), jprof, JOpt(**opt))
+    p = plan(make_serving_cluster(prof, **kw), prof, MILPOptions(**opt))
+    assert {n: (r.start, r.end) for n, r in p.placement.assignment.items()} \
+        == {n: (r.start, r.end) for n, r in jp.placement.assignment.items()}
+    assert len(p.placement.assignment) >= 2
+    assert p.throughput == pytest.approx(jp.throughput, rel=1e-9)
+    assert p.flows.keys() == jp.flows.keys()
+
+
+def test_unported_options_raise(port_model):
+    cfg, params = port_model
+    p = port_plan(cfg, {"n0": (0, 2), "n1": (2, 4)})
+    for kw in (dict(paged=False), dict(kv_dtype="int8"),
+               dict(draft_cfg=cfg, draft_params=params),
+               dict(realtime=True)):
+        with pytest.raises(NotImplementedError):
+            ClusterRuntime(cfg, params, p, EC, device="cpu", **kw)
+
+
+def test_entry_points_default_to_cuda(port_model, monkeypatch):
+    """Without a card, asking for the default device raises: no silent
+    fallback to the CPU."""
+    from repro_torch.models import init
+    cfg, params = port_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = port_plan(cfg, {"n0": (0, 2), "n1": (2, 4)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        ClusterRuntime(cfg, params, p, EC)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init(cfg, 0)
+
+
+def test_serve_cli_smoke_on_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "smollm_360m", "--smoke", "--cluster", "A100,L4", "--stages", "2",
+         "--device", "cpu", "--prompt", "20", "--new-tokens", "4"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "pools drained on every node" in res.stdout
+    assert "n0 -> n1" in res.stdout
