@@ -6,39 +6,60 @@
 Phases (any failure raises and the script exits non-zero):
   1. device   — prints the card's name and power limit (nvidia-smi); TF32
                 off for matmuls and convolutions.
-  2. build    — compiles the paged attention kernel with nvcc for sm_90a
-                from ``src/repro_torch/csrc`` (first use builds it).
-  3. kernel   — holds the kernel against its plain PyTorch version on the
-                card: smoke and full smollm shapes, ragged lengths (1, page,
-                page+1, NP*page, and 0), lengths that cross the kernel's
-                64-token tiles (63, 64, 65, 128, 129, 1999, 2048), a
-                shuffled block table whose dead entries point far outside
-                the pool, f32 / bf16 / int8 + scales.  Tolerances: f32 and
-                int8-with-f32-q atol=rtol=1e-5 (same fp32 math, other
-                summation order); bf16 and int8-with-bf16-q atol=rtol=2e-2
-                and, scaled to the output's size, max error <= 2**-7 x
-                max|plain| (one bf16 rounding of the output).  Times
-                the kernel, its plain version and, as a yardstick the port
-                never calls, ``scaled_dot_product_attention`` on already
-                gathered dense K/V (CUDA events, median of 100 launches
-                after warm-up) at the main path's decode shape and at
-                B=32, L=2048.
-  4. serving  — the port's ``launch/serve.py --cluster A100,L4 --stages 2``
-                path on cuda: full-width smollm-360m in bf16, 4 requests x
-                40-token prompts (chunked prefill past the 16-token chunk)
-                x 16 new tokens.  Asserts every request done, every pool
-                drained, >= 2 nodes per request, and kernel launches ==
-                decode passes x paged layers per node.
-  5. cross-check — the same full-width model in f32 through the runtime on
-                cuda (kernel) and on the CPU (plain versions), same weights:
-                first-prefill and first-decode last-stage logits allclose at
-                atol=rtol=1e-3, greedy tokens equal.
+  2. build    — compiles both kernels (paged_attention.cu, K1, and
+                flash_attention.cu, K2) with nvcc for sm_90a from
+                ``src/repro_torch/csrc``, the two builds started together.
+  3. K1       — paged decode attention against its plain PyTorch version
+                on the card: smoke and full smollm shapes, ragged lengths
+                (1, page, page+1, NP*page, and 0), lengths that cross the
+                kernel's 64-token tiles (63, 64, 65, 128, 129, 1999,
+                2048), a shuffled block table whose dead entries point far
+                outside the pool, f32 / bf16 / int8 + scales.  Tolerances:
+                f32 and int8-with-f32-q atol=rtol=1e-5 (same fp32 math,
+                other summation order); bf16 and int8-with-bf16-q
+                atol=rtol=2e-2 and max error <= 2**-7 x max|plain| (one
+                bf16 rounding of the output).
+  4. K2       — flash prefill attention against its plain version: every
+                mask (causal, bidirectional, causal + window 100) at every
+                D 16, 64, 128, G 1, 3, 4 and Sq = Sk in {1, 37, 64, 65,
+                511, 2048}, B 1 or 3 in turn; Sq != Sk both ways; strided
+                (B,S,H,D) views; an empty q launches nothing.  f32: max
+                error <= 1e-5; bf16: each element within 2**-7 x |plain|
+                + 1e-5 (one output rounding of that element).
+  5. serving  — full-width smollm-360m in bf16 through ``launch/serve.py
+                --cluster A100,L4 --stages 2``: paged (4 x 40-token prompts,
+                16 new tokens; K1 launches == decode passes x paged layers,
+                K2 none) and ``--dense`` (prompts of 37, 128, 300 and 511
+                tokens, 16 new tokens, max_len 576; K2 launches == 32 x
+                request prefills, K1 none).  Every request done, every pool
+                or slot released, >= 2 nodes per request; tokens/s printed.
+  6. engines  — ``Engine`` (K2 launches == 32 x prefills) and
+                ``PagedEngine`` (``--paged``; K1 launches == 32 x decode
+                steps) at full width.
+  7. profile  — both cluster runs again under ``torch.profiler``: device
+                busy time against the unprofiled wall time, top kernels.
+  8. timings  — CUDA events, median of 100 launches after warm-up: K1 at
+                the serving decode shape and B=32, L=2048 beside its plain
+                version, its bound and ``scaled_dot_product_attention`` on
+                already gathered K/V (a yardstick, not the same function);
+                K2 at B=1, S=511 and S=4096, causal, beside its plain
+                version, its bound and ``scaled_dot_product_attention``
+                (the same function).  The port never calls SDPA.
+  9. cross-checks, f32 — the paged cluster at full depth on cuda and on
+                the CPU (plain versions), same weights: first-prefill and
+                first-decode logits allclose at atol=rtol=1e-3, tokens
+                equal; then at full width and 4 layers, the dense cluster,
+                paged cluster, ``Engine`` and ``PagedEngine`` on cuda and
+                the dense cluster on the CPU: equal greedy tokens, dense
+                first-prefill logits cuda vs cpu within 1e-3.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -51,21 +72,29 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as k2_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_ref)
 from repro_torch.kernels.paged_attention import kernel as k1  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ref)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init  # noqa: E402
 from repro_torch.models.common import map_tree  # noqa: E402
-from repro_torch.serving.stage_engine import PagedStageEngine  # noqa: E402
+from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
+from repro_torch.serving.stage_engine import (  # noqa: E402
+    PagedStageEngine, StageEngine, _StageEngineBase)
 
 TOL = {"f32": dict(atol=1e-5, rtol=1e-5), "bf16": dict(atol=2e-2, rtol=2e-2)}
 # bf16 output: kernel and plain version both compute in fp32 and round once,
 # so they differ by at most one bf16 ulp, <= 2**-7 of the largest output
 BF16_REL_TO_MAX = 2.0 ** -7
+K2_F32_ATOL = 1e-5     # K2 f32: the same fp32 math in another order
 XCHECK_TOL = dict(atol=1e-3, rtol=1e-3)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM, bf16 tensor cores, dense
 PAGE = 16
 DEVICE = "cuda"
 
@@ -76,6 +105,20 @@ SERVE_ARGV = ["--arch", "smollm_360m", "--cluster", "A100,L4", "--stages",
 XCHECK_ARGV = ["--arch", "smollm_360m", "--cluster", "A100,L4", "--stages",
                "2", "--batch", "2", "--prompt", "40", "--new-tokens", "4",
                "--max-len", "64"]
+# the dense serving phase: prompts of 37, 128, 300 and 511 tokens (single-
+# shot prefill through K2 on both stages), 16 new tokens each
+DENSE_ARGV = ["--arch", "smollm_360m", "--cluster", "A100,L4", "--stages",
+              "2", "--dense", "--batch", "4", "--prompt", "37,128,300,511",
+              "--new-tokens", "16", "--max-len", "576"]
+# the engines phase: Engine (dense) and PagedEngine (--paged), one node
+ENGINES_ARGV = ["--arch", "smollm_360m", "--batch", "4", "--prompt",
+                "37,128,300,511", "--new-tokens", "8", "--max-len", "576"]
+# the four-path cross-check, at full width and DENSE_XCHECK_LAYERS layers
+DENSE_XCHECK_LAYERS = 4
+DENSE_XCHECK_ARGV = ["--arch", "smollm_360m", "--cluster", "A100,L4",
+                     "--stages", "2", "--batch", "4", "--prompt",
+                     "37,128,300,511", "--new-tokens", "8", "--max-len",
+                     "576"]
 
 
 def phase(name):
@@ -263,27 +306,172 @@ def kernel_timings(pool_pages):
 
 
 # ---------------------------------------------------------------------------
+# K2: flash prefill attention
+# ---------------------------------------------------------------------------
+
+K2_MASKS = {"causal": dict(causal=True, window=0),
+            "bidirectional": dict(causal=False, window=0),
+            "causal+window100": dict(causal=True, window=100)}
+
+
+def k2_check(name, q, k, v, mask, *, bshd=False):
+    """One K2 case against its plain version on the same inputs.  f32:
+    max error <= 1e-5 (the same fp32 math in another order).  bf16: each
+    element within 2**-7 x |plain| + 1e-5 of its plain value: both compute
+    in fp32 (to within the f32 bound) and round the output once, so they
+    differ by at most one bf16 ulp of that element (an ulp is <= 2**-7 of
+    the value)."""
+    kw = K2_MASKS[mask]
+    if bshd:       # model layout, passed as strided views
+        out = k2_ops.flash_attention_bshd(q, k, v, **kw)
+        ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), **kw).transpose(1, 2)
+    else:
+        out = flash_attention(q, k, v, **kw)
+        ref = flash_attention_ref(q, k, v, **kw)
+    sync()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if q.dtype == torch.float32:
+        limit = torch.full_like(diff, K2_F32_ATOL)
+    else:
+        limit = BF16_REL_TO_MAX * ref.float().abs() + K2_F32_ATOL
+    worst = (diff / limit).max().item()       # <= 1 passes
+    ok = worst <= 1.0 and bool(torch.isfinite(out.float()).all())
+    print(f"  {name:<58} {mask:<16} max|kernel-plain| = {err:.3e}, "
+          f"worst err/limit {worst:.3f} {'ok' if ok else 'FAIL'}")
+    require(ok, f"flash_attention disagrees with its plain version on "
+                f"{name} {mask}: max abs err {err}, worst err/limit {worst}")
+    return err, worst
+
+
+def k2_inputs(B, H, KH, Sq, Sk, D, dtype, gen):
+    q = torch.randn(B, H, Sq, D, generator=gen, device=DEVICE).to(dtype)
+    k = torch.randn(B, KH, Sk, D, generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn(B, KH, Sk, D, generator=gen, device=DEVICE).to(dtype)
+    return q, k, v
+
+
+def k2_checks():
+    """Every mask at every G: D 16/64/128 x G 1/3/4 x Sq = Sk in {1, 37,
+    64, 65, 511, 2048} x three masks, B 1 or 3 in turn, f32 and bf16;
+    Sq != Sk both ways; strided (B,S,H,D) inputs, among them slices of one
+    fused qkv tensor; an empty q launches nothing.  Returns the largest
+    abs error and the largest error over its limit."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    errs = []
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for D, G, S in itertools.product((16, 64, 128), (1, 3, 4),
+                                         (1, 37, 64, 65, 511, 2048)):
+            for mask in K2_MASKS:
+                B = (1, 3)[n % 2]
+                n += 1
+                KH = 2 if D == 16 else 5 if D == 64 else 2
+                q, k, v = k2_inputs(B, KH * G, KH, S, S, D, dtype, gen)
+                errs.append(k2_check(
+                    f"{dt} B={B} H={KH * G} KH={KH} S={S} D={D}",
+                    q, k, v, mask))
+        for Sq, Sk in ((37, 511), (511, 37), (65, 2048), (2048, 65),
+                       (1, 100), (100, 1), (300, 129)):
+            for mask in K2_MASKS:
+                q, k, v = k2_inputs(2, 15, 5, Sq, Sk, 64, dtype, gen)
+                errs.append(k2_check(f"{dt} B=2 H=15 KH=5 Sq={Sq} Sk={Sk} "
+                                     f"D=64", q, k, v, mask))
+        for S, D, H, KH in ((511, 64, 15, 5), (300, 128, 8, 2),
+                            (65, 16, 4, 2)):
+            for mask in K2_MASKS:
+                qkv = torch.randn(2, S, H + 2 * KH, D, generator=gen,
+                                  device=DEVICE).to(dtype)
+                q, k, v = (qkv[:, :, :H], qkv[:, :, H:H + KH],
+                           qkv[:, :, H + KH:])
+                errs.append(k2_check(f"{dt} fused-qkv (B,S,H,D) views S={S} "
+                                     f"H={H} KH={KH} D={D}", q, k, v, mask,
+                                     bshd=True))
+                q, k, v = (x.transpose(1, 2).contiguous()
+                           for x in k2_inputs(2, H, KH, S, S, D, dtype, gen))
+                errs.append(k2_check(f"{dt} (B,S,H,D) S={S} H={H} KH={KH} "
+                                     f"D={D}", q, k, v, mask, bshd=True))
+    before = k2.launches
+    q, k, v = k2_inputs(2, 15, 5, 0, 37, 64, torch.bfloat16, gen)
+    empty = flash_attention(q, k, v)
+    require(empty.shape == q.shape and k2.launches == before,
+            "flash_attention launched (or counted) a kernel for an empty q")
+    print(f"  {len(errs)} cases; empty q (Sq=0): no launch, none counted")
+    return max(e for e, _ in errs), max(w for _, w in errs)
+
+
+def k2_bound(q, k, causal):
+    """Least time for the same work: q, k, v read once and out written
+    once over HBM bandwidth vs 4*D FLOPs per visible (query, key) pair per
+    query head over the bf16 (or fp32) peak; the larger bounds it."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    elt = q.element_size()
+    nbytes = elt * (2 * q.numel() + 2 * k.numel())
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    flops = 4 * B * H * D * pairs
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k2_timings():
+    """K2 at the dense serving shape (one 511-token prompt) and at
+    B=1, S=4096, causal, bf16, beside its plain version, its bound and
+    ``scaled_dot_product_attention`` (the same function for causal
+    Sq = Sk; timed only, the port never calls it)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for key, S in (("S511", 511), ("S4096", 4096)):
+        q, k, v = k2_inputs(1, 15, 5, S, S, 64, torch.bfloat16, gen)
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                           reps=20)
+        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                      enable_gqa=True))
+        bound_ms, bound_by = k2_bound(q, k, True)
+        out[key] = dict(shape=f"B=1 H=15 KH=5 S={S} D=64 causal bf16",
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=lib_ms)
+        print(f"  {key}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})",
+              flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # serving + cross-check
 # ---------------------------------------------------------------------------
 
 class LastStageLogits:
-    """Records last-stage logits per request while active: the final
-    prefill chunk's and every decode pass's (by position)."""
+    """Records last-stage logits per request while active, on paged and
+    dense stage engines: the final prefill pass's (the last chunk wins) and
+    every decode pass's (by position)."""
 
     def __init__(self):
         self.prefill, self.decode = {}, {}
 
     def __enter__(self):
         self._orig = (PagedStageEngine.prefill_chunk,
-                      PagedStageEngine.decode_stage)
+                      StageEngine.prefill_stage, _StageEngineBase.decode_stage)
         rec = self
-        orig_pf, orig_dec = self._orig
+        orig_chunk, orig_stage, orig_dec = self._orig
+
+        def record(eng, slot, out):
+            if eng.is_last:
+                rec.prefill[eng.slots[slot]] = np.array(out)
+            return out
 
         def prefill_chunk(eng, slot, x, entry, start):
-            out = orig_pf(eng, slot, x, entry, start)
-            if eng.is_last:
-                rec.prefill[eng.slots[slot]] = np.array(out)   # last chunk wins
-            return out
+            return record(eng, slot, orig_chunk(eng, slot, x, entry, start))
+
+        def prefill_stage(eng, slot, x, entry):
+            return record(eng, slot, orig_stage(eng, slot, x, entry))
 
         def decode_stage(eng, items):
             outs = orig_dec(eng, items)
@@ -294,45 +482,56 @@ class LastStageLogits:
             return outs
 
         PagedStageEngine.prefill_chunk = prefill_chunk
-        PagedStageEngine.decode_stage = decode_stage
+        StageEngine.prefill_stage = prefill_stage
+        _StageEngineBase.decode_stage = decode_stage
         return self
 
     def __exit__(self, *exc):
-        PagedStageEngine.prefill_chunk, PagedStageEngine.decode_stage = \
-            self._orig
+        (PagedStageEngine.prefill_chunk, StageEngine.prefill_stage,
+         _StageEngineBase.decode_stage) = self._orig
 
 
-def serving_phase():
-    args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE])
-    cfg = serve.build_config(args)
-    print(f"  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
-          f"H={cfg.num_heads}/KH={cfg.num_kv_heads} D={cfg.resolved_head_dim} "
-          f"vocab={cfg.vocab_size} {cfg.param_dtype}")
-    params = init(cfg, args.seed, device=DEVICE)
-    warm = serve.parse_args(SERVE_ARGV + ["--device", DEVICE,
-                                          "--new-tokens", "2"])
-    serve.run_cluster(cfg, warm, params, verbose=False)     # CUDA warm-up
+def zero_counts():
     k1.launches = 0
-    with LastStageLogits() as rec:
-        rt, reqs, p, dt = serve.run_cluster(cfg, args, params)
-    launches = k1.launches
-    toks = sum(len(r.output) for r in reqs)
-    require(all(r.done and len(r.output) == args.new_tokens for r in reqs),
+    k2.launches = 0
+
+
+def check_requests(cfg, reqs, new_tokens, served=None, rec=None):
+    """Every request done with all its tokens, ids in the vocabulary, and
+    (cluster runs) served on >= 2 nodes with finite last-stage logits."""
+    require(all(r.done and len(r.output) == new_tokens for r in reqs),
             "not every request finished with all its tokens")
     require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
             "token ids outside the vocabulary")
-    for rid in range(len(reqs)):
-        require(len(rt.served[rid].stages) >= 2,
-                f"req{rid} served on {rt.served[rid]}")
+    for r in reqs if served is not None else ():
+        rid = r.request_id
+        require(len(served[rid].stages) >= 2, f"req{rid} on {served[rid]}")
         require(np.isfinite(rec.prefill[rid]).all() and
                 all(np.isfinite(l).all() for l in rec.decode[rid].values()),
                 f"req{rid}: non-finite last-stage logits")
+
+
+def serving_phase(cfg, params):
+    """Paged cluster serving: K1 in every decode pass of every layer, K2
+    never."""
+    args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE])
+    warm = serve.parse_args(SERVE_ARGV + ["--device", DEVICE,
+                                          "--new-tokens", "2"])
+    serve.run_cluster(cfg, warm, params, verbose=False)     # CUDA warm-up
+    zero_counts()
+    with LastStageLogits() as rec:
+        rt, reqs, p, dt = serve.run_cluster(cfg, args, params)
+    launches, k2_launches = k1.launches, k2.launches
+    toks = sum(len(r.output) for r in reqs)
+    check_requests(cfg, reqs, args.new_tokens, rt.served, rec)
     used = rt.pool_pages_used()
     require(all(u == 0 for u in used.values()), f"pages leaked: {used}")
     expected = sum(e.decode_steps * e.n_paged for e in rt.engines.values())
     passes = {n: e.decode_steps for n, e in rt.engines.items()}
     require(expected > 0 and launches == expected,
-            f"{launches} kernel launches, expected {expected}")
+            f"{launches} paged_attention launches, expected {expected}")
+    require(k2_launches == 0, f"{k2_launches} flash_attention launches on "
+                              "the paged path, expected 0")
     print(f"  placement: " + ", ".join(
         f"{n}=[{r.start},{r.end})"
         for n, r in sorted(p.placement.assignment.items())))
@@ -340,45 +539,234 @@ def serving_phase():
           f"{toks / dt:.2f} tokens/s (host clock, after a warm-up run)")
     print(f"  paged_attention launches: {launches} = decode passes {passes} "
           f"x paged layers {({n: e.n_paged for n, e in rt.engines.items()})}; "
-          f"pools drained {used}")
+          f"flash_attention launches: 0; pools drained {used}")
     pool_pages = max(e.pool.num_pages for e in rt.engines.values())
-    return launches, toks / dt, pool_pages
+    return launches, toks / dt, pool_pages, dt
 
 
-def cross_check():
-    args_gpu = serve.parse_args(XCHECK_ARGV + ["--device", DEVICE])
-    args_cpu = serve.parse_args(XCHECK_ARGV + ["--device", "cpu"])
-    cfg = dataclasses.replace(serve.build_config(args_gpu),
-                              param_dtype="float32", compute_dtype="float32")
-    params_cpu = init(cfg, args_gpu.seed, device="cpu")
-    params_gpu = map_tree(lambda t: t.to(DEVICE), params_cpu)
+def dense_serving_phase(cfg, params, card):
+    """Dense cluster serving (``--dense``): K2 in every prefill of every
+    layer, K1 never (dense decode is plain torch)."""
+    args = serve.parse_args(DENSE_ARGV + ["--device", DEVICE])
+    warm = serve.parse_args(DENSE_ARGV + ["--device", DEVICE,
+                                          "--new-tokens", "2"])
+    serve.run_cluster(cfg, warm, params, verbose=False)     # CUDA warm-up
+    zero_counts()
+    with LastStageLogits() as rec:
+        rt, reqs, p, dt = serve.run_cluster(cfg, args, params)
+    launches, k1_launches = k2.launches, k1.launches
+    toks = sum(len(r.output) for r in reqs)
+    check_requests(cfg, reqs, args.new_tokens, rt.served, rec)
+    require(all(isinstance(e, StageEngine) for e in rt.engines.values()),
+            "--dense built a paged engine")
+    held = {n: e.kv_tokens_used() for n, e in rt.engines.items()
+            if e.kv_tokens_used() or e.free_slots != len(e.slots)}
+    require(not held, f"dense slots not released: {held}")
+    prefills = len(reqs) + sum(r.preemptions for r in reqs)
+    passes = sum(e.prefills * e.layers.num_layers
+                 for e in rt.engines.values())
+    require(launches == cfg.num_layers * prefills == passes,
+            f"{launches} flash_attention launches, expected "
+            f"{cfg.num_layers} x {prefills} request prefills = {passes}")
+    require(k1_launches == 0, f"{k1_launches} paged_attention launches on "
+                              "the dense path, expected 0")
+    print(f"  placement: " + ", ".join(
+        f"{n}=[{r.start},{r.end})"
+        for n, r in sorted(p.placement.assignment.items())))
+    print(f"  flash_attention launches: {launches} = {cfg.num_layers} layers "
+          f"x {prefills} request prefills (prompts "
+          f"{[len(r.prompt) for r in reqs]}); paged_attention launches: 0")
+    print(f"  dense serving: {len(reqs)} requests, {toks} tokens in "
+          f"{dt:.4f} s = {toks / dt:.2f} tokens/s on {card} (host clock, "
+          f"after a warm-up run)")
+    return launches, toks / dt, dt
+
+
+def profile_phase(cfg, params, walls):
+    """Where the serving time goes: the paged and the dense cluster runs
+    once more under ``torch.profiler`` (CPU + CUDA activities).  Sums the
+    device time of every kernel and copy in the trace (device events
+    only, so an op's time is not counted twice) and prints it beside the
+    same run's wall time without the profiler (``walls``, from the serving
+    phases) — their ratio is the device's busy share — and beside the
+    profiled wall time (inflated by the profiler's own host cost); then
+    the kernels with the most device time, and K1's and K2's share.
+    Device time missing from the trace is reported as not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for name, argv in (("paged cluster", SERVE_ARGV),
+                       ("dense cluster", DENSE_ARGV)):
+        args = serve.parse_args(argv + ["--device", DEVICE])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, _, dt = serve.run_cluster(cfg, args, params, verbose=False)
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        if not rows:
+            print(f"  {name}: device time not measured (the trace holds "
+                  "no device events)")
+            continue
+        busy = sum(ms for _, ms, _ in rows)
+        wall = 1e3 * walls[name]
+        ours = {k: sum(ms for key, ms, _ in rows if k in key)
+                for k in ("paged_attention_kernel", "flash_attention_kernel")}
+        print(f"  {name}: device busy {busy:.1f} ms in "
+              f"{sum(n for _, _, n in rows)} kernels and copies = "
+              f"{100 * busy / wall:.1f}% of the unprofiled wall time "
+              f"{wall:.1f} ms (profiled wall {1e3 * dt:.1f} ms); K1 "
+              f"{ours['paged_attention_kernel']:.2f} ms, K2 "
+              f"{ours['flash_attention_kernel']:.2f} ms")
+        for key, ms, n in rows[:8]:
+            print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<6} "
+                  f"{key[:90]}")
+
+
+def _engine_config(args):
+    """The engines phase's config: the dense Engine's prompt bucket holds
+    the longest prompt."""
+    return EngineConfig(max_batch=args.batch, max_len=args.max_len,
+                        prompt_len=args.max_len)
+
+
+def _run_engine(cfg, params, args):
+    """The dense single-node ``Engine`` on ``args``' requests."""
+    eng = Engine(cfg, params, _engine_config(args), device=DEVICE)
+    reqs = serve.make_requests(cfg, args)
+
+    def run():
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+    return eng, reqs, serve.timed(torch.device(DEVICE), run)
+
+
+def engines_phase(cfg, params):
+    """The single-node engines at full width: ``Engine`` (dense: K2 in
+    every prefill) and ``PagedEngine`` (``--paged``: K1 in every decode
+    step), each with its launch counts."""
+    args = serve.parse_args(ENGINES_ARGV + ["--device", DEVICE])
+    _run_engine(cfg, params, serve.parse_args(
+        ENGINES_ARGV + ["--device", DEVICE, "--new-tokens", "2"]))
+    zero_counts()
+    eng, reqs, dt = _run_engine(cfg, params, args)
+    check_requests(cfg, reqs, args.new_tokens)
+    require(k2.launches == cfg.num_layers * eng.prefills > 0 and
+            k1.launches == 0,
+            f"Engine: {k2.launches} flash_attention launches for "
+            f"{eng.prefills} prefills, {k1.launches} paged_attention")
+    require(not eng.active.any(), "Engine: slots still active")
+    toks = sum(len(r.output) for r in reqs)
+    print(f"  Engine: {len(reqs)} requests, {toks} tokens in {dt:.4f} s; "
+          f"flash_attention launches {k2.launches} = {cfg.num_layers} x "
+          f"{eng.prefills} prefills; paged_attention 0")
+
+    paged = serve.parse_args(ENGINES_ARGV + ["--paged", "--device", DEVICE])
+    serve.run_paged(cfg, serve.parse_args(
+        ENGINES_ARGV + ["--paged", "--device", DEVICE, "--new-tokens", "2"]),
+        params, verbose=False)
+    zero_counts()
+    peng, preqs, pdt = serve.run_paged(cfg, paged, params, verbose=False)
+    check_requests(cfg, preqs, paged.new_tokens)
+    require(k1.launches == cfg.num_layers * peng.decode_steps > 0 and
+            k2.launches == 0,
+            f"PagedEngine: {k1.launches} paged_attention launches for "
+            f"{peng.decode_steps} decode steps, {k2.launches} "
+            "flash_attention")
+    require(peng.pool.used == 0, f"PagedEngine leaked {peng.pool.used} pages")
+    ptoks = sum(len(r.output) for r in preqs)
+    print(f"  PagedEngine: {len(preqs)} requests, {ptoks} tokens in "
+          f"{pdt:.4f} s; paged_attention launches {k1.launches} = "
+          f"{cfg.num_layers} x {peng.decode_steps} decode steps; "
+          f"flash_attention 0; pool drained")
+
+
+def _xcheck_runs(cfg, params, argv):
+    """The paged cluster on cuda and the CPU, last-stage logits recorded:
+    returns ((gpu recorder, gpu tokens), (cpu recorder, cpu tokens))."""
     runs = {}
-    for name, args, params in (("cuda", args_gpu, params_gpu),
-                               ("cpu", args_cpu, params_cpu)):
+    for name, dev, p in (("cuda", DEVICE, params),
+                         ("cpu", "cpu", map_tree(lambda t: t.cpu(), params))):
+        args = serve.parse_args(argv + ["--device", dev])
         with LastStageLogits() as rec:
-            _, reqs, _, dt = serve.run_cluster(cfg, args, params,
-                                               verbose=False)
+            _, reqs, _, dt = serve.run_cluster(cfg, args, p, verbose=False)
         runs[name] = (rec, [r.output for r in reqs])
         print(f"  {name}: tokens {runs[name][1]} ({dt:.2f} s)")
-    (g, g_tok), (c, c_tok) = runs["cuda"], runs["cpu"]
+    return runs["cuda"], runs["cpu"]
+
+
+def _compare_logits(g, c, what):
     worst = 0.0
     for rid in sorted(c.prefill):
-        first_pos = min(c.decode[rid])
-        for what, a, b in (("prefill", g.prefill[rid], c.prefill[rid]),
-                           ("decode", g.decode[rid][first_pos],
-                            c.decode[rid][first_pos])):
+        pairs = [("prefill", g.prefill[rid], c.prefill[rid])]
+        if what == "decode":
+            first_pos = min(c.decode[rid])
+            pairs.append(("decode", g.decode[rid][first_pos],
+                          c.decode[rid][first_pos]))
+        for name, a, b in pairs:
             err = float(np.abs(a - b).max())
             worst = max(worst, err)
-            print(f"  req{rid} first {what} logits: max|cuda-cpu| = "
+            print(f"  req{rid} first {name} logits: max|cuda-cpu| = "
                   f"{err:.3e} (max |logit| {np.abs(b).max():.3f})")
             require(np.allclose(a, b, **XCHECK_TOL),
-                    f"req{rid} {what} logits differ beyond {XCHECK_TOL}: "
+                    f"req{rid} {name} logits differ beyond {XCHECK_TOL}: "
                     f"{err}")
+    return worst
+
+
+def cross_check(cfg32, params32):
+    """Paged cluster, full depth, f32: cuda vs cpu."""
+    (g, g_tok), (c, c_tok) = _xcheck_runs(cfg32, params32, XCHECK_ARGV)
+    worst = _compare_logits(g, c, "decode")
     require(g_tok == c_tok, f"greedy tokens differ: cuda {g_tok} cpu {c_tok}")
     print(f"  greedy tokens equal; worst logit gap {worst:.3e}")
 
 
+def dense_cross_check(cfg32, params32):
+    """Full width at 4 layers, f32: on the card the dense cluster, the
+    paged cluster, ``Engine`` and ``PagedEngine`` give the same greedy
+    tokens; the dense cluster's first-prefill logits on the card are
+    within 1e-3 of the port's CPU run."""
+    cfg4 = dataclasses.replace(cfg32, repeats=DENSE_XCHECK_LAYERS)
+    params4 = dict(params32, super=map_tree(
+        lambda t: t[:DENSE_XCHECK_LAYERS], params32["super"]))
+    (g, g_tok), (c, c_tok) = _xcheck_runs(cfg4, params4,
+                                          DENSE_XCHECK_ARGV + ["--dense"])
+    worst = _compare_logits(g, c, "prefill")
+    tokens = {"dense cluster cuda": g_tok, "dense cluster cpu": c_tok}
+    args = serve.parse_args(DENSE_XCHECK_ARGV + ["--device", DEVICE])
+    _, reqs, _, _ = serve.run_cluster(cfg4, args, params4, verbose=False)
+    tokens["paged cluster cuda"] = [r.output for r in reqs]
+    _, reqs, _ = _run_engine(cfg4, params4, args)
+    tokens["Engine cuda"] = [r.output for r in reqs]
+    args = serve.parse_args(DENSE_XCHECK_ARGV + ["--paged", "--device",
+                                                 DEVICE])
+    _, reqs, _ = serve.run_paged(cfg4, args, params4, verbose=False)
+    tokens["PagedEngine cuda"] = [r.output for r in reqs]
+    for name, toks in tokens.items():
+        print(f"  {name}: {toks}")
+    require(all(t == g_tok for t in tokens.values()),
+            "greedy tokens differ between the serving paths")
+    print(f"  greedy tokens equal on all {len(tokens)} runs; worst "
+          f"first-prefill logit gap {worst:.3e}")
+
+
 # ---------------------------------------------------------------------------
+
+def build_all():
+    """Both kernels' nvcc builds, started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (k1, k2)))
+    print(f"  built {', '.join(os.path.relpath(l, ROOT) for l in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for m in (k1, k2):
+        for line in m.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  " + line.strip())
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -397,40 +785,76 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase("build")
-    t0 = time.perf_counter()
-    lib = k1.build()
-    print(f"  built {os.path.relpath(lib, ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in k1.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    build_all()
 
-    phase("kernel")
-    max_err = kernel_checks()
+    phase("kernel K1: paged_attention vs plain")
+    k1_err = kernel_checks()
 
-    phase("serving")
-    launches, tok_s, pool_pages = serving_phase()
+    phase("kernel K2: flash_attention vs plain")
+    k2_err, k2_worst = k2_checks()
+
+    args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE])
+    cfg = serve.build_config(args)
+    print(f"\n  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
+          f"H={cfg.num_heads}/KH={cfg.num_kv_heads} D={cfg.resolved_head_dim} "
+          f"vocab={cfg.vocab_size} {cfg.param_dtype}")
+    params = init(cfg, args.seed, device=DEVICE)
+
+    phase("serving: paged cluster")
+    k1_launches, tok_s, pool_pages, paged_s = serving_phase(cfg, params)
+
+    phase("serving: dense cluster")
+    k2_launches, dense_tok_s, dense_s = dense_serving_phase(cfg, params,
+                                                           card)
+
+    phase("engines: Engine and PagedEngine")
+    engines_phase(cfg, params)
+
+    phase("profile: where the serving time goes")
+    profile_phase(cfg, params, {"paged cluster": paged_s,
+                                "dense cluster": dense_s})
+    del params
 
     phase("kernel timings")
-    t = kernel_timings(pool_pages)
+    t1 = kernel_timings(pool_pages)
+    t2 = k2_timings()
 
-    phase("cross-check f32 cuda vs cpu")
-    cross_check()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = init(cfg32, args.seed, device=DEVICE)
+    phase("cross-check f32: paged cluster cuda vs cpu")
+    cross_check(cfg32, params32)
 
-    print(f"serving: {tok_s:.2f} tokens/s on {card}")
-    main_t = t["decode"]
-    # no single PyTorch call computes paged attention (the gather through
-    # the block table included), so library_ms is null; yardstick_ms is
-    # scaled_dot_product_attention on K/V gathered beforehand
-    record = {"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-        "library_ms": None, "yardstick_ms": main_t["yardstick_ms"],
-        "shape": main_t["shape"], "B32_L2048": t["B32_L2048"]}]}
+    phase(f"cross-check f32, {DENSE_XCHECK_LAYERS} layers: four serving "
+          "paths")
+    dense_cross_check(cfg32, params32)
+
+    print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
+          f"{dense_tok_s:.2f} tokens/s on {card}")
+    main1, main2 = t1["decode"], t2["S511"]
+    # K1: no single PyTorch call computes paged attention (the gather
+    # through the block table included), so library_ms is null and
+    # yardstick_ms is scaled_dot_product_attention on K/V gathered
+    # beforehand.  K2: scaled_dot_product_attention computes the same
+    # function for causal Sq = Sk.
+    record = {"kernels": [
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
+         "launches": k1_launches, "max_abs_err": k1_err,
+         "ms": main1["ms"], "plain_ms": main1["plain_ms"],
+         "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
+         "library_ms": None, "yardstick_ms": main1["yardstick_ms"],
+         "shape": main1["shape"], "B32_L2048": t1["B32_L2048"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
+         "launches": k2_launches, "max_abs_err": k2_err,
+         "worst_err_over_limit": k2_worst,
+         "ms": main2["ms"], "plain_ms": main2["plain_ms"],
+         "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
+         "library_ms": main2["library_ms"], "shape": main2["shape"],
+         "S4096": t2["S4096"]}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,4 +2,7 @@
 
 paged_attention — one-token GQA decode over the paged KV pool (CUDA C++,
                   ``repro_torch/csrc/paged_attention.cu``)
+flash_attention — blockwise GQA prefill attention, causal / windowed /
+                  bidirectional (CUDA C++,
+                  ``repro_torch/csrc/flash_attention.cu``)
 """

@@ -1,0 +1,141 @@
+"""Flash prefill attention: wrapper of the hand-written CUDA kernel.
+
+The kernel, ``repro_torch/csrc/flash_attention.cu``, replaces the Pallas
+TPU kernel ``repro/kernels/flash_attention/kernel.py::flash_attention``.
+One block per (64-row query tile, query head, batch) walks the 64-row K/V
+tiles it can see with an fp32 online softmax; the source's header note says
+what bounds it and what the design does about that.  It is built at first
+use with ``nvcc`` for ``sm_90a`` (``repro_torch.kernels._nvcc``).
+
+``flash_attention`` takes its plain version (``ref.flash_attention_ref``)
+only when every tensor it is given lies on the CPU.  For CUDA tensors it
+launches the kernel or raises; ``launches`` counts the launches.  It reads
+q, k and v through their strides (head_dim contiguous) and can write into a
+strided ``out``, so the model layout (B,S,H,D) needs no copy
+(``ops.flash_attention_bshd``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Optional
+
+import torch
+
+from .._nvcc import CSRC, build_library
+from .ref import flash_attention_ref
+
+# kernel launches made by ``flash_attention`` (CPU calls do not count)
+launches = 0
+
+HEAD_DIMS = (16, 64, 128)        # template instances in the source
+_SRC = CSRC / "flash_attention.cu"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+_lock = threading.Lock()
+build_log = ""          # nvcc's output (-Xptxas -v) of the last build here
+
+
+def build():
+    """Compile the kernel for sm_90a (once per source version) and return
+    the shared library's path."""
+    global build_log
+    lib, log = build_library(_SRC)
+    build_log = log or build_log
+    return lib
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.flash_attention_launch
+            fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+                           + [ctypes.c_int] * 2
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+            lib.flash_attention_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def _check(q, k, v, out, window):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q must be (B,H,Sq,D) and k/v (B,KH,Sk,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    _, KH, Sk, _ = k.shape
+    if v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k/v {tuple(k.shape)} / {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} is not one of the kernel's "
+                         f"instances {HEAD_DIMS}")
+    if KH == 0 or H % KH:
+        raise ValueError(f"{H} query heads are not a multiple of {KH} kv "
+                         "heads")
+    if Sk == 0:
+        raise ValueError("flash_attention needs at least one key")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for t in (k, v, out):
+        if t.dtype != q.dtype:
+            raise TypeError(f"q, k, v and out must share a dtype; got "
+                            f"{q.dtype} and {t.dtype}")
+    if out.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} != q {tuple(q.shape)}")
+    for t in (q, k, v, out):
+        if t.device != q.device:
+            raise ValueError(f"tensors on {t.device} and {q.device}")
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            raise ValueError("flash_attention needs head_dim contiguous "
+                             f"(stride 1), got strides {t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B,H,Sq,D); k/v: (B,KH,Sk,D), f32 or bf16 -> (B,H,Sq,D) in q's
+    dtype (written into ``out`` when given, which may be a strided view).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream or raise."""
+    global launches
+    given = [t for t in (q, k, v, out) if t is not None]
+    if all(t.device.type == "cpu" for t in given):
+        res = flash_attention_ref(q, k, v, causal=causal, window=window)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    if out is None:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _check(q, k, v, out, window)
+    if out.numel() == 0:      # nothing to compute: no launch, none counted
+        return out
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    lib = _load()
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_attention_launch(
+            _DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, H, KH, Sq, Sk, *strides,
+            int(bool(causal)), int(window), 1.0 / math.sqrt(D), stream)
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc} ({msg})")
+    launches += 1
+    return out

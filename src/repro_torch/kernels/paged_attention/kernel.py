@@ -18,60 +18,31 @@ launches the kernel or raises; ``launches`` counts the launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from .._nvcc import CSRC, build_library
 from .ref import paged_attention_ref
 
 # kernel launches made by ``paged_attention`` (CPU calls do not count)
 launches = 0
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "paged_attention.cu"
+_SRC = CSRC / "paged_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _lib = None
 _lock = threading.Lock()
 build_log = ""          # nvcc's output (-Xptxas -v) of the last build here
-# git-ignored, at the root of the checkout (src/repro_torch/kernels/...)
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and (Path(root) / "bin" / "nvcc").exists():
-            return str(Path(root) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the paged attention kernel is built "
-                       "with the CUDA toolkit's nvcc (set CUDA_HOME)")
-
-
-def build() -> Path:
+def build():
     """Compile the kernel for sm_90a (once per source version) and return
     the shared library's path."""
     global build_log
-    tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
-    lib = _BUILD_DIR / f"libpaged_attention_{tag}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, lib)
+    lib, log = build_library(_SRC)
+    build_log = log or build_log
     return lib
 
 

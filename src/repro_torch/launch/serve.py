@@ -1,21 +1,29 @@
-"""Cluster serving driver of the port — counterpart of the in-process
-``--cluster`` path of ``repro.launch.serve`` (``run_cluster``).
+"""Serving driver of the port — counterpart of the ``--cluster`` and
+``--paged`` paths of ``repro.launch.serve``.
 
-MILP placement over a (VRAM-derated) logical cluster -> IWRR pipelines ->
-one paged stage engine per node under the ``ClusterRuntime``.  Every node's
-engine lives on the one device (``--device``, CUDA by default), as the
-reference plays every node in one process.
+Cluster serving: MILP placement over a (VRAM-derated) logical cluster ->
+IWRR pipelines -> one stage engine per node under the ``ClusterRuntime``,
+paged stage engines by default or dense ones with ``--dense``.  Every
+node's engine lives on the one device (``--device``, CUDA by default), as
+the reference plays every node in one process.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --cluster A100,L4 --stages 2 --batch 4 --prompt 40 --new-tokens 16
-
-CPU smoke run (small config, plain versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
-      --smoke --cluster A100,L4 --stages 2 --device cpu
+      --cluster A100,L4 --stages 2 --dense --prompt 37,128,300,511 \
+      --new-tokens 16 --max-len 576
 
-Not ported yet: the single-node ``--paged`` engine, the sharded ``--mesh``
-path, ``--dense``, int8 KV, socket workers, speculative decoding and the
-HTTP front door.
+Single-node paged-KV serving (``PagedEngine``, a full-rectangle pool):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
+      --paged --batch 4 --prompt 40 --new-tokens 8
+
+CPU smoke runs (small config, plain versions of the kernels): add
+``--smoke --device cpu``.  ``--prompt`` takes one length or a
+comma-separated list that the requests cycle through.
+
+Not ported yet: the sharded mesh path (ROADMAP queue 1 item 8; without
+``--cluster`` or ``--paged`` the driver raises), int8 KV, socket workers,
+speculative decoding and the HTTP front door.
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import (MILPOptions, ModelProfile, make_serving_cluster,
                               plan)
 from repro_torch.models import init, resolve_device
-from repro_torch.serving.engine import EngineConfig, Request
+from repro_torch.serving.engine import EngineConfig, PagedEngine, Request
 from repro_torch.serving.runtime import ClusterRuntime
 
 
@@ -51,9 +59,40 @@ def make_plan(cfg, args):
                                               fgls_rounds=20))
 
 
+def make_requests(cfg, args) -> List[Request]:
+    """``--batch`` requests of random tokens (seed ``--seed``), prompt
+    lengths cycling through ``--prompt``."""
+    lens = [int(n) for n in str(args.prompt).split(",")]
+    rng = np.random.RandomState(args.seed)
+    return [Request(i, rng.randint(0, cfg.vocab_size,
+                                   size=(lens[i % len(lens)],)),
+                    max_new_tokens=args.new_tokens)
+            for i in range(args.batch)]
+
+
+def timed(dev, run) -> float:
+    """Seconds of ``run()`` on the host clock, the device synchronised at
+    both ends."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def _report(reqs, dt, dev, what):
+    toks = sum(len(r.output) for r in reqs)
+    print(f"{what}: {len(reqs)} reqs, {toks} tokens in {dt:.3f}s "
+          f"({toks / max(dt, 1e-9):.1f} tok/s) on {dev}")
+    print("sampled ids:", [r.output for r in reqs[:2]])
+
+
 def run_cluster(cfg, args, params=None, *, verbose: bool = True):
-    """Serve ``--batch`` random prompts through the cluster runtime.
-    Returns (runtime, requests, plan, seconds)."""
+    """Serve ``--batch`` random prompts through the cluster runtime (paged
+    stage engines, or dense ones with ``--dense``).  Returns (runtime,
+    requests, plan, seconds)."""
     dev = resolve_device(args.device)
     p = make_plan(cfg, args)
     if verbose:
@@ -63,31 +102,48 @@ def run_cluster(cfg, args, params=None, *, verbose: bool = True):
         params = init(cfg, args.seed, device=dev)
     ec = EngineConfig(max_batch=args.batch, max_len=args.max_len,
                       prompt_len=min(16, args.max_len))
-    rt = ClusterRuntime(cfg, params, p, ec, page_size=args.page_size,
+    rt = ClusterRuntime(cfg, params, p, ec, paged=not args.dense,
+                        page_size=args.page_size,
                         max_inflight=args.max_inflight, device=dev)
-    rng = np.random.RandomState(args.seed)
-    reqs = [Request(i, rng.randint(0, cfg.vocab_size, size=(args.prompt,)),
-                    max_new_tokens=args.new_tokens)
-            for i in range(args.batch)]
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for r in reqs:
-        rt.submit(r)
-    rt.run_until_done()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
+    reqs = make_requests(cfg, args)
+
+    def run():
+        for r in reqs:
+            rt.submit(r)
+        rt.run_until_done()
+    dt = timed(dev, run)
     assert all(r.done for r in reqs)
     if verbose:
-        toks = sum(len(r.output) for r in reqs)
         for r in reqs:
             print(f"req{r.request_id} -> "
                   + " -> ".join(s.node for s in rt.served[r.request_id].stages))
-        print(f"cluster: {len(reqs)} reqs, {toks} tokens in {dt:.3f}s "
-              f"({toks / max(dt, 1e-9):.1f} tok/s) on {dev}")
-        print("sampled ids:", [r.output for r in reqs[:2]])
+        _report(reqs, dt, dev, "cluster" + (" (dense)" if args.dense else ""))
     return rt, reqs, p, dt
+
+
+def run_paged(cfg, args, params=None, *, verbose: bool = True):
+    """Single-node paged-KV serving: a full-rectangle pool, chunked prefill
+    for prompts past the 16-token chunk, paged attention decode.  Returns
+    (engine, requests, seconds)."""
+    dev = resolve_device(args.device)
+    ec = EngineConfig(max_batch=args.batch, max_len=args.max_len,
+                      prompt_len=min(16, args.max_len))
+    if params is None:
+        params = init(cfg, args.seed, device=dev)
+    eng = PagedEngine(cfg, params, ec, page_size=args.page_size, device=dev)
+    if verbose:
+        print(f"pool: {eng.pool.num_pages} pages x {args.page_size} tokens")
+    reqs = make_requests(cfg, args)
+
+    def run():
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+    dt = timed(dev, run)
+    assert all(r.done for r in reqs)
+    if verbose:
+        _report(reqs, dt, dev, "paged")
+    return eng, reqs, dt
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -95,35 +151,68 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced SMOKE config")
-    ap.add_argument("--cluster", required=True,
+    ap.add_argument("--cluster", default="",
                     help="comma-separated device types of the logical "
                          "cluster the planner places the model on")
     ap.add_argument("--stages", type=int, default=0,
-                    help="derate VRAM to force >= N pipeline stages")
+                    help="with --cluster: derate VRAM to force >= N "
+                         "pipeline stages")
+    ap.add_argument("--dense", action="store_true",
+                    help="with --cluster: dense stage engines, not paged")
+    ap.add_argument("--paged", action="store_true",
+                    help="without --cluster: serve through the single-node "
+                         "paged-KV engine")
     ap.add_argument("--device", default="cuda",
-                    help="device every node's engine runs on (cuda | cpu)")
+                    help="device every engine runs on (cuda | cpu)")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt", type=int, default=16)
+    ap.add_argument("--prompt", default="16",
+                    help="prompt length, or comma-separated lengths the "
+                         "requests cycle through")
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--max-inflight", type=int, default=1,
-                    help="per-request in-flight decode window")
+                    help="with --cluster: per-request in-flight decode "
+                         "window")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
     return ap.parse_args(argv)
 
 
+def _not_drained(rt) -> dict:
+    """Nodes still holding pages (paged) or slots (dense)."""
+    out = {n: u for n, u in rt.pool_pages_used().items() if u}
+    for n, e in rt.engines.items():
+        if e.free_slots != len(e.slots) or e.kv_tokens_used():
+            out[n] = f"{len(e.slots) - e.free_slots} slots"
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     cfg = build_config(args)
-    print(f"serving {cfg.name} ({cfg.num_layers}L d={cfg.d_model} "
-          f"{cfg.param_dtype}) over cluster {args.cluster} on {args.device}")
-    rt, _, _, _ = run_cluster(cfg, args)
-    leaked = {n: u for n, u in rt.pool_pages_used().items() if u}
-    if leaked:
-        raise SystemExit(f"pages leaked: {leaked}")
-    print("pools drained on every node")
+    if args.cluster:
+        print(f"serving {cfg.name} ({cfg.num_layers}L d={cfg.d_model} "
+              f"{cfg.param_dtype}) over cluster {args.cluster} on "
+              f"{args.device}")
+        rt, _, _, _ = run_cluster(cfg, args)
+        leaked = _not_drained(rt)
+        if leaked:
+            raise SystemExit(f"KV not released: {leaked}")
+        print("dense caches released on every node" if args.dense
+              else "pools drained on every node")
+        return
+    if args.paged:
+        print(f"serving {cfg.name} ({cfg.num_layers}L d={cfg.d_model} "
+              f"{cfg.param_dtype}) on one paged engine on {args.device}")
+        eng, _, _ = run_paged(cfg, args)
+        if eng.pool.used:
+            raise SystemExit(f"pages leaked: {eng.pool.used}")
+        print("pool drained")
+        return
+    raise NotImplementedError(
+        "sharded serving over a device mesh is not ported to repro_torch "
+        "yet (ROADMAP queue 1 item 8); pass --cluster or --paged")
 
 
 if __name__ == "__main__":

@@ -1,25 +1,26 @@
 """Model assembly for the dense GQA family — counterpart of
 ``repro.models.model`` (``param_specs`` / ``init``, ``_embed``, ``_logits``,
-``forward``).
+``forward``, and the dense serving path: ``init_caches``, ``prefill``,
+``fill_prefill_cache``, ``decode_step``).
 
 The layer stack is ``prologue + pattern * repeats``; the repeated part keeps
-the reference's layout, params stacked on a leading "layers" axis under
-``params["super"]``, and the reference's ``lax.scan`` over it becomes a
-Python loop over that axis.  Families other than full-attention GQA with a
+the reference's layout, params (and dense caches) stacked on a leading
+"layers" axis under ``["super"]``, and the reference's ``lax.scan`` over it
+becomes a Python loop over that axis.  Every prefill attention goes through
+``chunked_attention``, the flash prefill attention kernel.  Families other than full-attention GQA with a
 SwiGLU FFN (MoE, MLA, SSM, windowed attention, encoder-decoder) are not
 ported yet and raise.
 """
 from __future__ import annotations
 
-import math
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
 from ..configs.base import BlockSpec, ModelConfig
-from .attention import NEG_INF, _gqa_qkv_rope, attn_spec
+from .attention import attn_spec, gqa_cache_init, gqa_decode, gqa_prefill
 from .common import (ParamSpec, apply_norm, init_params, map_tree,
-                     norm_spec, resolve_device)
+                     norm_spec, resolve_device, torch_dtype)
 from .moe import ffn_apply, ffn_spec
 
 
@@ -101,38 +102,38 @@ def layer_params(params, r: int, i: int):
 
 
 # ---------------------------------------------------------------------------
+# Block application (prefill / scoring path)
+# ---------------------------------------------------------------------------
+
+def _window(b: BlockSpec) -> int:
+    return b.window if b.attn in ("swa", "local") else 0
+
+
+def _apply_block(cfg, b: BlockSpec, p, h, positions, collect_cache=False):
+    """One block over a whole sequence.  Returns (h, cache): the block's
+    roped (k, v) when ``collect_cache``, else None.  (The reference also
+    returns a MoE aux loss, which is 0 for this family.)"""
+    hn = apply_norm(cfg, p["norm1"], h)
+    out, cache = gqa_prefill(cfg, p["mix"], hn, positions, window=_window(b))
+    h = h + out
+    hn = apply_norm(cfg, p["norm2"], h)
+    h = h + ffn_apply(p["ffn"], hn)
+    return h, (cache if collect_cache else None)
+
+
+# ---------------------------------------------------------------------------
 # Train / scoring forward
 # ---------------------------------------------------------------------------
 
-def _causal_gqa(cfg, params, x, positions):
-    """Full causal GQA self-attention of a whole sequence: one chunk of the
-    reference's ``chunked_attention`` (fp32 scores, unnormalized
-    probabilities cast to V's dtype, fp32 accumulate, divide by the
-    denominator)."""
-    B, S, _ = x.shape
-    q, k, v = _gqa_qkv_rope(cfg, params, x, positions)
-    KH, D = k.shape[2], k.shape[3]
-    G = cfg.num_heads // KH
-    qg = q.reshape(B, S, KH, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                     k.float()) / math.sqrt(D)
-    mask = positions[:, :, None] >= positions[:, None, :]       # (B,Sq,Sk)
-    s = torch.where(mask[:, None, None], s,
-                    torch.full((), NEG_INF, device=x.device))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1)                                           # (B,KH,G,Sq)
-    acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
-    ctx = (acc / l.clamp_min(1e-30)[..., None]).permute(0, 3, 1, 2, 4)
-    ctx = ctx.to(x.dtype)
-    ctx = ctx.reshape(B, S, cfg.num_heads, D)
-    return torch.einsum("bshk,hkd->bsd", ctx, params["o"])
-
-
-def _apply_block(cfg, p, h, positions):
-    hn = apply_norm(cfg, p["norm1"], h)
-    h = h + _causal_gqa(cfg, p["mix"], hn, positions)
-    hn = apply_norm(cfg, p["norm2"], h)
-    return h + ffn_apply(p["ffn"], hn)
+def _blocks(cfg, params):
+    """(BlockSpec, block params) for every layer, in stack order; the
+    reference's ``lax.scan`` over the super-block is this loop over its
+    repeats."""
+    for i, b in enumerate(cfg.prologue):
+        yield b, params["prologue"][i]
+    for r in range(cfg.repeats):
+        for i, b in enumerate(cfg.pattern):
+            yield b, layer_params(params, r, i)
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -142,10 +143,126 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     h = _embed(cfg, params, tokens, positions)
-    for i in range(len(cfg.prologue)):
-        h = _apply_block(cfg, params["prologue"][i], h, positions)
-    for r in range(cfg.repeats):
-        for i in range(len(cfg.pattern)):
-            h = _apply_block(cfg, layer_params(params, r, i), h, positions)
+    for b, p in _blocks(cfg, params):
+        h, _ = _apply_block(cfg, b, p, h, positions)
     h = apply_norm(cfg, params["final_norm"], h)
     return _logits(cfg, params, h)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode with dense caches
+# ---------------------------------------------------------------------------
+
+def _cache_init_for_block(cfg, b: BlockSpec, batch, max_len, dtype, *,
+                          device="cuda"):
+    return gqa_cache_init(cfg, batch, max_len, _window(b), dtype,
+                          device=device)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
+                device="cuda"):
+    """Dense decode caches: ``prologue`` (one dict per block) and ``super``
+    (per pattern position, leaves stacked on a leading repeats axis)."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    caches: Dict[str, Any] = {}
+    if cfg.prologue:
+        caches["prologue"] = [
+            _cache_init_for_block(cfg, b, batch, max_len, dtype, device=dev)
+            for b in cfg.prologue]
+    caches["super"] = {
+        f"pos{i}": map_tree(
+            lambda x: x.expand((cfg.repeats,) + x.shape).clone(),
+            _cache_init_for_block(cfg, b, batch, max_len, dtype, device=dev))
+        for i, b in enumerate(cfg.pattern)}
+    return caches
+
+
+def _block_caches(cfg, caches):
+    """Cache dict of every layer, in stack order (views into the stacked
+    ``super`` leaves, so in-place writes land in ``caches``)."""
+    for i in range(len(cfg.prologue)):
+        yield caches["prologue"][i]
+    for r in range(cfg.repeats):
+        for i in range(len(cfg.pattern)):
+            yield map_tree(lambda x: x[r], caches["super"][f"pos{i}"])
+
+
+def _apply_block_decode(cfg, b: BlockSpec, p, h, cache, cache_pos,
+                        rows=None):
+    hn = apply_norm(cfg, p["norm1"], h)
+    out, cache = gqa_decode(cfg, p["mix"], hn, cache, cache_pos,
+                            window=_window(b), rows=rows)
+    h = h + out
+    hn = apply_norm(cfg, p["norm2"], h)
+    return h + ffn_apply(p["ffn"], hn), cache
+
+
+def decode_step(cfg: ModelConfig, params, tokens, caches, cache_pos):
+    """One autoregressive step.  tokens: (B,) int; cache_pos: (B,) absolute
+    position of this token.  The caches are updated in place.  Returns
+    (logits (B,V), caches)."""
+    check_ported(cfg)
+    h = _embed(cfg, params, tokens[:, None], cache_pos[:, None])
+    for (b, p), c in zip(_blocks(cfg, params), _block_caches(cfg, caches)):
+        h, _ = _apply_block_decode(cfg, b, p, h, c, cache_pos)
+    h = apply_norm(cfg, params["final_norm"], h)
+    return _logits(cfg, params, h)[:, 0], caches
+
+
+def fill_prefill_cache(cfg: ModelConfig, b: BlockSpec, raw_cache, batch: int,
+                       seq_len: int, max_len: int, dtype):
+    """One block's prefill (k, v) -> its decode cache (ring/dense buffers
+    sized max_len): the last ``min(S, W)`` tokens, the token at absolute
+    position p in slot p % W (windowed) or p."""
+    k, v = raw_cache
+    S = seq_len
+    window = _window(b)
+    tgt = gqa_cache_init(cfg, batch, max_len, window, dtype, device=k.device)
+    W = tgt["k"].shape[1]
+    n = min(S, W)
+    if window:
+        last_pos = torch.arange(S - n, S, device=k.device)
+        slots = last_pos % W
+        tgt["k"][:, slots] = k[:, -n:].to(dtype)
+        tgt["v"][:, slots] = v[:, -n:].to(dtype)
+        tgt["pos"][:, slots] = last_pos.to(torch.int32)
+        return tgt
+    # slot = position; slots past W are dropped, as the reference's
+    # scatter drops out-of-range indices
+    lo, hi = S - n, min(S, W)
+    tgt["k"][:, lo:hi] = k[:, lo:hi].to(dtype)
+    tgt["v"][:, lo:hi] = v[:, lo:hi].to(dtype)
+    tgt["pos"][:, lo:hi] = torch.arange(lo, hi, dtype=torch.int32,
+                                        device=k.device)
+    return tgt
+
+
+def prefill(cfg: ModelConfig, params, tokens, *,
+            max_len: Optional[int] = None):
+    """Process the prompt, returning (last-token logits (B,V), caches) ready
+    for decode at position S.  tokens: (B,S)."""
+    check_ported(cfg)
+    B, S = tokens.shape
+    max_len = max_len or S
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    h = _embed(cfg, params, tokens, positions)
+    dtype = h.dtype
+    per_layer = []
+    for b, p in _blocks(cfg, params):
+        h, raw = _apply_block(cfg, b, p, h, positions, collect_cache=True)
+        per_layer.append(fill_prefill_cache(cfg, b, raw, B, S, max_len,
+                                            dtype))
+    n_pro = len(cfg.prologue)
+    caches: Dict[str, Any] = {}
+    if cfg.prologue:
+        caches["prologue"] = per_layer[:n_pro]
+    pat = len(cfg.pattern)
+    caches["super"] = {
+        f"pos{i}": {key: torch.stack([per_layer[n_pro + r * pat + i][key]
+                                      for r in range(cfg.repeats)])
+                    for key in ("k", "v", "pos")}
+        for i in range(pat)}
+    h = apply_norm(cfg, params["final_norm"], h)
+    return _logits(cfg, params, h[:, -1:])[:, 0], caches

@@ -1,5 +1,5 @@
 """Stage-level model execution: run a contiguous layer slice of the stack —
-counterpart of the paged paths of ``repro.models.stage``.
+counterpart of the dense and paged paths of ``repro.models.stage``.
 
 Helix's MILP assigns each node a contiguous ``LayerRange``; a stage engine
 executes only those blocks, receiving token ids (first stage) or incoming
@@ -11,9 +11,10 @@ node mid-range, and per-node continuous batching mixes requests with
 different entry layers in one decode step.  Each block therefore applies
 only to rows with ``row_start <= layer``; masked rows pass their hidden state
 through unchanged.  Masked rows still run the block and write their
-(meaningless) K/V into their own pages — those entries are never read,
-because a request's entry layer is fixed for its lifetime at a node — and
-the pad rows of a fixed-size batch write into scratch page 0.
+(meaningless) K/V into their own cache rows or pages — those entries are
+never read, because a request's entry layer is fixed for its lifetime at a
+node — and the pad rows of a fixed-size batch write into a scratch cache
+row or scratch page 0.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ import torch
 from ..configs.base import BlockSpec, ModelConfig
 from ..core.placement import LayerRange
 from .common import apply_norm, map_tree, torch_dtype
-from .model import _embed, _logits, check_ported
+from .model import (_apply_block, _apply_block_decode, _cache_init_for_block,
+                    _embed, _logits, check_ported, fill_prefill_cache)
 from .paged import _block_decode_paged, _block_prefill_paged, is_paged_block
 
 
@@ -72,6 +74,14 @@ def stage_params(cfg: ModelConfig, params, layers: LayerRange) -> Dict:
     return out
 
 
+def stage_cache_init(cfg: ModelConfig, layers: LayerRange, batch: int,
+                     max_len: int, *, device="cuda") -> List:
+    """Dense per-block decode caches for the slice (batch-major leaves)."""
+    dt = torch_dtype(cfg.param_dtype)
+    return [_cache_init_for_block(cfg, b, batch, max_len, dt, device=device)
+            for _, b in stage_blocks(cfg, layers)]
+
+
 def stage_cache_init_paged(cfg: ModelConfig, layers: LayerRange, batch: int,
                            max_len: int) -> List:
     """Per-block dense caches of the slice: ``{}`` for every paged block,
@@ -85,6 +95,80 @@ def stage_cache_init_paged(cfg: ModelConfig, layers: LayerRange, batch: int,
                 "caches are not ported yet")
         out.append({})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Dense prefill / decode over the slice
+# ---------------------------------------------------------------------------
+
+def stage_prefill(cfg: ModelConfig, sparams, layers: LayerRange, x,
+                  entry: int, *, max_len: int):
+    """Prompt pass over blocks [entry, layers.end).
+
+    ``x`` is token ids (B,S) when ``entry == 0`` else incoming activations
+    (B,S,d).  Every block's attention is the flash prefill attention
+    kernel.  Returns ``(out, caches)``: last-token logits (B,V) when the
+    slice ends the model, else outgoing activations (B,S,d); ``caches``
+    covers all local blocks (skipped prefix blocks get fresh inits, so the
+    list matches the engine's slot layout).
+    """
+    B, S = x.shape[:2]
+    dev = x.device
+    positions = torch.arange(S, device=dev).expand(B, S)
+    h = _embed(cfg, sparams, x, positions) if entry == 0 else x
+    dt = torch_dtype(cfg.param_dtype)
+    caches: List = []
+    for (l, b), p in zip(stage_blocks(cfg, layers), sparams["blocks"]):
+        if l < entry:
+            caches.append(_cache_init_for_block(cfg, b, B, max_len, dt,
+                                                device=dev))
+            continue
+        h, raw = _apply_block(cfg, b, p, h, positions, collect_cache=True)
+        caches.append(fill_prefill_cache(cfg, b, raw, B, S, max_len, dt))
+    if layers.end == cfg.num_layers:
+        h = apply_norm(cfg, sparams["final_norm"], h)
+        return _logits(cfg, sparams, h[:, -1:])[:, 0], caches
+    return h, caches
+
+
+def stage_decode(cfg: ModelConfig, sparams, layers: LayerRange, tok, h_in,
+                 row_start, caches, cache_pos, rows=None):
+    """One batched decode step over the slice with per-row entry masking.
+
+    tok: (B,) token ids (consumed only by rows entering at layer 0 —
+    possible only when ``layers.start == 0``); h_in: (B,1,d) incoming
+    activations; row_start: (B,) entry layer per row; caches: one dense
+    cache per local block, updated in place; cache_pos: (B,); rows: (B,)
+    cache row of each batch row (default: row i).  Returns
+    ``(h_out (B,1,d), logits (B,V) | None, caches)`` — logits iff the
+    slice ends the model.
+    """
+    h = _stage_input(cfg, sparams, layers, tok, h_in, row_start, cache_pos)
+    for (l, b), p, c in zip(stage_blocks(cfg, layers), sparams["blocks"],
+                            caches):
+        h_new, _ = _apply_block_decode(cfg, b, p, h, c, cache_pos, rows)
+        h = torch.where((row_start <= l)[:, None, None], h_new, h)
+    return h, _stage_logits(cfg, sparams, layers, h), caches
+
+
+def _stage_input(cfg, sparams, layers, tok, h_in, row_start, cache_pos):
+    """A decode step's hidden state entering the slice: the token's
+    embedding for rows entering at layer 0, else the incoming
+    activations."""
+    if layers.start == 0:
+        emb = _embed(cfg, sparams, tok[:, None], cache_pos[:, None])
+        return torch.where((row_start == 0)[:, None, None], emb,
+                           h_in.to(emb.dtype))
+    return h_in.to(torch_dtype(cfg.param_dtype))
+
+
+def _stage_logits(cfg, sparams, layers, h):
+    """Last-position logits (B,V) when the slice ends the model, else
+    None."""
+    if layers.end != cfg.num_layers:
+        return None
+    hn = apply_norm(cfg, sparams["final_norm"], h)
+    return _logits(cfg, sparams, hn)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -136,13 +220,7 @@ def stage_decode_paged(cfg: ModelConfig, sparams, layers: LayerRange, tok,
     logits (B,V) | None, k_pages, v_pages)`` — logits iff the slice ends
     the model.
     """
-    positions = cache_pos[:, None]
-    if layers.start == 0:
-        emb = _embed(cfg, sparams, tok[:, None], positions)
-        h = torch.where((row_start == 0)[:, None, None], emb,
-                        h_in.to(emb.dtype))
-    else:
-        h = h_in.to(torch_dtype(cfg.param_dtype))
+    h = _stage_input(cfg, sparams, layers, tok, h_in, row_start, cache_pos)
     li = 0
     for (l, b), p in zip(stage_blocks(cfg, layers), sparams["blocks"]):
         if not is_paged_block(cfg, b):
@@ -151,8 +229,4 @@ def stage_decode_paged(cfg: ModelConfig, sparams, layers: LayerRange, tok,
             cfg, p, h, k_pages, v_pages, tables[li], cache_pos)
         li += 1
         h = torch.where((row_start <= l)[:, None, None], h_new, h)
-    logits = None
-    if layers.end == cfg.num_layers:
-        hn = apply_norm(cfg, sparams["final_norm"], h)
-        logits = _logits(cfg, sparams, hn)[:, 0]
-    return h, logits, k_pages, v_pages
+    return h, _stage_logits(cfg, sparams, layers, h), k_pages, v_pages

@@ -3,17 +3,21 @@ counterpart of ``repro.serving.runtime`` (the in-process, virtual-clock
 path).
 
 The MILP places layer slices on nodes, max-flow IWRR walks per-request
-pipelines, and this module runs them: each node owns a ``PagedStageEngine``
-over its assigned ``LayerRange``, activations hop between nodes through the
+pipelines, and this module runs them: each node owns a stage engine over
+its assigned ``LayerRange`` — a ``PagedStageEngine`` (paged mode, the
+default) or a dense ``StageEngine`` (``paged=False``, or a slice with no
+paged layer) — activations hop between nodes through the
 ``InProcessTransport``, and every node continuously batches whatever
 stage-work (from any request, entering at any layer) is resident each
 iteration.  Every node's engine lives on the same device (one card, or the
 CPU when asked), as the reference runs every node in one process.
 
 Event loop: a virtual-clock heap of deliveries.  Prefill hops execute inline
-as they arrive, chunked across stages (chunk n+1 enters stage 0 as soon as
-chunk n left it); decode inputs accumulate in per-node inboxes and run as
-batched ``decode_stage`` calls per node per iteration.
+as they arrive: in paged mode chunked across stages (chunk n+1 enters
+stage 0 as soon as chunk n left it), in dense mode single-shot, one hop per
+stage, with a guard that drops a duplicate delivery; decode inputs
+accumulate in per-node inboxes and run as batched ``decode_stage`` calls
+per node per iteration.
 
 Pipelined decode: each request carries an in-flight window of up to
 ``max_inflight`` decode passes launched but not yet confirmed.  After
@@ -26,20 +30,21 @@ position on every stage node up front.  ``max_inflight=1`` is the classic
 one-outstanding-token walk.
 
 Memory: admission takes a slot and the prompt's pages on every stage node
-up front; completion and preemption release KV on every node of the
-pipeline.  When a pool runs dry mid-decode the newest resident request is
-preempted pipeline-wide (recompute-on-readmit keeps its generated tokens).
+up front (a dense engine's rectangle is reserved at construction);
+completion and preemption release KV on every node of the pipeline.  When
+a pool runs dry mid-decode the newest resident request is preempted
+pipeline-wide (recompute-on-readmit keeps its generated tokens).
 
 Scheduler feedback: after every iteration each node's true pool occupancy
 is written into the scheduler's ``KVEstimator`` (``_sync_kv``), and real
 pool capacities are installed at startup.
 
-Not ported yet (the arguments raise): speculative decoding, disaggregated
-prefill/decode, cancel, failover and ``apply_plan``, the wall-clock
-(realtime) loop, socket transports and workers, dense stage engines and
-int8 KV pools.  The in-process transport never duplicates or reorders a
-delivery, so the reference's delivery dedup and chunk reordering guards
-are not carried either.
+Not ported yet (the arguments raise; ROADMAP queue 1): int8 KV pools
+(item 1), speculative decoding (item 3), disaggregated prefill/decode
+(item 4), cancel, failover and ``apply_plan`` (item 5), the wall-clock
+(realtime) loop, socket transports and workers (item 6), and models that
+are not all-paged (item 7).  The in-process transport never reorders a
+delivery, so the reference's chunk reordering guard is not carried.
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ from ..models.paged import all_blocks_paged
 from ..models.stage import stage_num_paged_layers
 from .engine import EngineConfig, Request
 from .kv_pool import full_rectangle_pages, pages_for_vram
-from .stage_engine import DecodeItem, PagedStageEngine
+from .stage_engine import DecodeItem, PagedStageEngine, StageEngine
 
 
 class InProcessTransport:
@@ -103,6 +108,8 @@ class _Job:
     next_pos: int = 0                # cache position of the next pass
     inbox: Dict[int, int] = dataclasses.field(default_factory=dict)
                                      # out-of-order sampled tokens by index
+    seen: set = dataclasses.field(default_factory=set)
+                                     # dedup keys of deliveries already run
 
     @property
     def resumed(self) -> bool:
@@ -115,19 +122,19 @@ class _Job:
         return self.next_j - len(self.req.output)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP queue 1: {item})")
+                               f"(ROADMAP queue 1 item {item})")
 
 
 class ClusterRuntime:
-    """Orchestrates one paged stage engine per placed node (see the module
+    """Orchestrates one stage engine per placed node (see the module
     docstring).
 
     ``plan`` is a ``repro_torch.core.planner.Plan``; engines are built from
-    its placement on ``device``, with pools sized from each node's own VRAM
-    (capped at the full rectangle, floored at one max_len request) unless
-    ``pool_pages`` names a node's page count.
+    its placement on ``device``.  Paged engines get pools sized from each
+    node's own VRAM (capped at the full rectangle, floored at one max_len
+    request) unless ``pool_pages`` names a node's page count.
     """
 
     def __init__(self, cfg: ModelConfig, params, plan,
@@ -140,27 +147,24 @@ class ClusterRuntime:
                  realtime: Optional[bool] = None):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
-        if not paged:
-            raise _not_ported("the dense StageEngine", "dense engines")
         if kv_dtype == "int8":
-            raise _not_ported("int8 KV serving", "int8 KV serving")
+            raise _not_ported("int8 KV serving", 1)
         if draft_cfg is not None or draft_params is not None:
-            raise _not_ported("speculative decoding", "speculation")
-        if realtime:
-            raise _not_ported("the wall-clock loop", "front door")
-        if engine_factory is not None:
-            raise _not_ported("engine factories (remote workers)",
-                              "sockets / worker")
+            raise _not_ported("speculative decoding", 3)
         if (plan.placement.meta or {}).get("roles"):
-            raise _not_ported("disaggregated placements", "disaggregation")
+            raise _not_ported("disaggregated placements", 4)
+        if realtime:
+            raise _not_ported("the wall-clock loop", 6)
+        if engine_factory is not None:
+            raise _not_ported("engine factories (remote workers)", 6)
         if not all_blocks_paged(cfg):
-            raise _not_ported(f"serving {cfg.name} (not all-paged)",
-                              "model breadth")
+            raise _not_ported(f"serving {cfg.name} (not all-paged)", 7)
         self.cfg = cfg
         self.params = params
         self.ec = engine_cfg
         self.device = resolve_device(device)
         self.max_inflight = max_inflight
+        self.paged = paged
         self.page_size = page_size
         self.pool_pages = dict(pool_pages or {})
         self.rng_seed = rng_seed
@@ -174,7 +178,7 @@ class ClusterRuntime:
         self.transport = transport or InProcessTransport()
         self.transport.bind(lambda d, fn: self._push(self._now + d, fn))
 
-        self.engines: Dict[str, PagedStageEngine] = {}
+        self.engines: Dict[str, Any] = {}
         for node, rng in sorted(self.placement.assignment.items()):
             self.engines[node] = self._make_engine(node, rng)
         self._sync_kv(capacities=True)
@@ -206,7 +210,12 @@ class ClusterRuntime:
         blocks = -(-self.ec.max_len // self.page_size)
         return max(pages, 1 + blocks * n_paged)
 
-    def _make_engine(self, node: str, rng: LayerRange) -> PagedStageEngine:
+    def _make_engine(self, node: str, rng: LayerRange):
+        """A dense ``StageEngine`` when the runtime is dense or the slice has
+        no paged layer, else a ``PagedStageEngine`` with its pool."""
+        if not self.paged or stage_num_paged_layers(self.cfg, rng) == 0:
+            return StageEngine(self.cfg, self.params, rng, self.ec,
+                               rng_seed=self.rng_seed, device=self.device)
         return PagedStageEngine(self.cfg, self.params, rng, self.ec,
                                 num_pages=self._pool_pages(node, rng),
                                 page_size=self.page_size,
@@ -349,11 +358,18 @@ class ClusterRuntime:
             job.next_j = len(job.req.output) if job.resumed else 1
             job.next_pos = S
             job.inbox = {}
+            job.seen = set()
             job.seq = self._jseq
             self._jseq += 1
             self.jobs[job.req.request_id] = job
             self.served[job.req.request_id] = job.pipe
-            self._send_chunk(job, 0)
+            if self.paged:      # chunked prefill (all-paged stacks)
+                self._send_chunk(job, 0)
+            else:
+                tokens = self._prefill_tokens(job)
+                self._send(COORDINATOR, job.pipe.stages[0].node, tokens,
+                           len(tokens) * self.profile.token_bytes,
+                           self._hop(job, 0, None))
             progressed = True
         return progressed
 
@@ -366,26 +382,43 @@ class ClusterRuntime:
                    self._hop(job, 0, off))
 
     # -- prefill hops -------------------------------------------------------
-    def _hop(self, job: _Job, si: int, off: int) -> Callable[[Any], None]:
+    def _hop(self, job: _Job, si: int, off: Optional[int]
+             ) -> Callable[[Any], None]:
+        """Delivery of a prefill payload to stage ``si``: the chunk at
+        ``off`` (paged), or the whole prompt (``off=None``, dense), which
+        runs once per stage — a duplicate delivery is dropped."""
         epoch = job.epoch
-        return lambda x: (self._prefill_exec(job, epoch, si, x, off)
-                          if job.epoch == epoch else None)
+
+        def deliver(x):
+            if job.epoch != epoch:
+                return               # preempted/requeued mid-flight
+            if off is None:
+                if ("pf", si) in job.seen:
+                    return
+                job.seen.add(("pf", si))
+            self._prefill_exec(job, epoch, si, x, off)
+        return deliver
 
     def _prefill_exec(self, job: _Job, epoch: int, si: int, x,
-                      off: int) -> None:
+                      off: Optional[int]) -> None:
         stages = job.pipe.stages
         st = stages[si]
         eng = self.engines[st.node]
-        n_tok = min(max(1, self.ec.prompt_len), job.pos - off)
+        slot = job.slots[st.node]
         last = si == len(stages) - 1
-        out = eng.prefill_chunk(job.slots[st.node], x, st.layers.start, off)
+        if off is None:
+            n_tok = job.pos
+            out = eng.prefill_stage(slot, x, st.layers.start)
+        else:
+            n_tok = min(max(1, self.ec.prompt_len), job.pos - off)
+            out = eng.prefill_chunk(slot, x, st.layers.start, off)
         if not last:
             self._send(st.node, stages[si + 1].node, out,
                        self._act_bytes(n_tok), self._hop(job, si + 1, off))
-        if si == 0 and off + n_tok < job.pos:
+        if off is not None and si == 0 and off + n_tok < job.pos:
             # stage 0 freed: stream the next chunk in behind this one
             self._send_chunk(job, off + n_tok)
-        if last and off + n_tok >= job.pos:
+        if last and (off is None or off + n_tok >= job.pos):
             # final chunk left the final stage: out is last-token logits
             if job.resumed:
                 tok = job.req.output[-1]      # sampled before eviction
@@ -585,4 +618,6 @@ class ClusterRuntime:
 
     # -- introspection --------------------------------------------------------
     def pool_pages_used(self) -> Dict[str, int]:
-        return {n: e.pool_used() for n, e in self.engines.items()}
+        """Allocated pages per paged node (dense nodes have no pool)."""
+        return {n: u for n, e in self.engines.items()
+                if (u := e.pool_used()) is not None}

@@ -1,25 +1,29 @@
-"""Per-node paged stage engine: the execution half of a Helix compute node —
+"""Per-node stage engines: the execution half of a Helix compute node —
 counterpart of ``repro.serving.stage_engine``.
 
 A stage engine holds only the params (``models.stage.stage_params``) and KV
 for one node's assigned ``LayerRange`` and exposes the stage-level API the
 ``ClusterRuntime`` drives:
 
-  prefill_chunk(slot, x, entry, start)   chunked paged prefill of one request
+  prefill_stage(slot, x, entry)    dense: single-shot prompt pass of one
+                                   request (``StageEngine``)
+  prefill_chunk(slot, x, entry, start)   paged: chunked prefill of one
+                                   request (``PagedStageEngine``)
   decode_stage(items)              ONE batched decode step over whatever
                                    stage-work is resident this iteration —
                                    per-node continuous batching; items may
                                    mix requests entering at different layers
   sample(logits, temperature)      final-stage token sampling
 
-Slot mechanics: the page pool's block table carries ``max_batch + 1`` rows;
-the extra row is scratch — decode batches are padded to a fixed width with
-scratch rows, whose writes land in page 0, which nothing ever reads.
+Slot mechanics: the dense caches (and the page pool's block table) carry
+``max_batch + 1`` rows; the extra row is scratch — decode batches are
+padded to a fixed width with scratch rows, whose writes land in the
+scratch cache row (or page 0), which nothing ever reads.
 
 Activations between stages stay device tensors; logits leave the device as
-float32 numpy rows for sampling.  Not ported yet: the dense ``StageEngine``,
-speculative verify items and ``rollback``, and the KV handoff
-(``export_kv`` / ``import_kv``) of disaggregated serving.
+float32 numpy rows for sampling.  Not ported yet: speculative verify items
+and the paged engine's ``rollback`` (ROADMAP queue 1 item 3), and the KV
+handoff (``export_kv`` / ``import_kv``) of disaggregated serving (item 4).
 """
 from __future__ import annotations
 
@@ -33,8 +37,10 @@ from ..configs.base import ModelConfig
 from ..core.placement import LayerRange
 from ..models.common import map_tree, resolve_device, torch_dtype
 from ..models.paged import all_blocks_paged
-from ..models.stage import (stage_decode_paged, stage_num_paged_layers,
-                            stage_params, stage_prefill_chunk_paged)
+from ..models.stage import (stage_cache_init, stage_decode,
+                            stage_decode_paged, stage_num_paged_layers,
+                            stage_params, stage_prefill,
+                            stage_prefill_chunk_paged)
 from .engine import EngineConfig, _active_blocks_bucket
 from .kv_pool import PagePool, full_rectangle_pages
 from .sampling import sample_token
@@ -87,6 +93,15 @@ class _StageEngineBase:
 
     def free_slot(self, slot: int) -> None:
         self.slots[slot] = None
+
+    @property
+    def free_slots(self) -> int:
+        return sum(r is None for r in self.slots)
+
+    def pool_used(self) -> Optional[int]:
+        """Allocated page count, or None for an engine without a page
+        pool."""
+        return None
 
     # -- sampling (final stage) -----------------------------------------
     def sample(self, logits: np.ndarray, temperature: float) -> int:
@@ -142,6 +157,83 @@ class _StageEngineBase:
         return [DecodeOut(h=h[i:i + 1],
                           logits=l[i] if l is not None else None)
                 for i in range(len(items))]
+
+
+def _splice(full: torch.Tensor, one: torch.Tensor, slot: int) -> None:
+    """Copy a batch-1 cache leaf into row ``slot`` of the engine leaf (in
+    place)."""
+    full[slot] = one[0]
+
+
+class StageEngine(_StageEngineBase):
+    """Dense per-slot caches over the node's layer slice: the rectangle
+    ``(max_batch + 1) x max_len`` is reserved up front, prefill is
+    single-shot through the flash prefill attention kernel, and decode
+    attends over the dense caches in plain torch."""
+
+    def __init__(self, cfg: ModelConfig, params, layers: LayerRange,
+                 engine_cfg: EngineConfig, rng_seed: int = 0,
+                 device="cuda"):
+        super().__init__(cfg, params, layers, engine_cfg, rng_seed, device)
+        ec = engine_cfg
+        self.caches = stage_cache_init(cfg, layers, ec.max_batch + 1,
+                                       ec.max_len, device=self.device)
+        self._active_tokens = np.zeros((ec.max_batch,), np.int64)
+        self.prefills = 0          # prompt passes run on this node
+
+    @torch.no_grad()
+    def prefill_stage(self, slot: int, x, entry: int):
+        """Prompt pass for one request.  x: (S,) int token ids when
+        ``entry == 0`` else (1, S, d) activations.  Returns (1, S, d)
+        activations as a device tensor, or (V,) last-token logits as
+        float32 numpy at the final stage."""
+        if entry == 0:
+            xin = torch.as_tensor(np.asarray(x, np.int64),
+                                  device=self.device)[None, :]
+        else:
+            xin = x.to(self.device)
+        out, caches1 = stage_prefill(self.cfg, self.sparams, self.layers, xin,
+                                     entry, max_len=self.ec.max_len)
+        for full, one in zip(self.caches, caches1):
+            for key in full:
+                _splice(full[key], one[key], slot)
+        self._active_tokens[slot] = xin.shape[1]
+        self.prefills += 1
+        if self.is_last:
+            return out[0].float().cpu().numpy()
+        return out
+
+    @torch.no_grad()
+    def _decode_step(self, items: List[DecodeItem]):
+        idx, tok, pos, entry, h_in = self._assemble(items)
+        # the step writes each row's new K/V at its cache row in place (pad
+        # rows all name the scratch row; whichever write lands there is
+        # unread)
+        rows = torch.from_numpy(idx).to(self.device)
+        h, logits, _ = stage_decode(self.cfg, self.sparams, self.layers,
+                                    tok, h_in, entry, self.caches, pos, rows)
+        for it in items:
+            self._active_tokens[it.slot] = it.pos + 1
+        return (h, logits.float().cpu().numpy()
+                if logits is not None else None)
+
+    def rollback(self, slot: int, tokens: int) -> None:
+        """Dense caches are positional and attention masks rows past the
+        position, so forgetting rows >= ``tokens`` is bookkeeping only."""
+        self._active_tokens[slot] = tokens
+
+    def release(self, slot: int) -> None:
+        self._active_tokens[slot] = 0
+        self.free_slot(slot)
+
+    def ensure(self, slot: int, tokens: int) -> bool:
+        return tokens <= self.ec.max_len   # rectangle is pre-reserved
+
+    def kv_tokens_used(self) -> int:
+        return int(self._active_tokens.sum())
+
+    def kv_tokens_capacity(self) -> int:
+        return self.ec.max_batch * self.ec.max_len
 
 
 class PagedStageEngine(_StageEngineBase):

@@ -10,6 +10,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long end-to-end tests (multi-process workers); "
                    "deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA kernels of the torch "
+                   "port); skips without one")
 
 from repro.models import init
 

@@ -46,6 +46,10 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     for m in ("repro_torch.core.milp", "repro_torch.models.stage",
               "repro_torch.serving.runtime", "repro_torch.launch.serve",
               "repro_torch.kernels.paged_attention.kernel",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.serving.engine",
+              "repro_torch.serving.stage_engine",
               "repro_torch.convert"):
         assert m in mods, res.stdout
 

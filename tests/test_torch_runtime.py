@@ -1,10 +1,12 @@
 """The port's Helix serving path against the JAX package (f32, CPU).
 
-The port's ``ClusterRuntime`` over paged stage engines must produce greedy
-tokens *equal* to the reference's single full-model engine (the
-``reference`` fixture) on multi-stage placements, and drain every node's
-pool; the copied planner must place like the reference's; and the port's
-serve driver must run end to end on the CPU.
+The port's ``ClusterRuntime`` over paged stage engines, and over dense
+stage engines (``paged=False``), must produce greedy tokens *equal* to the
+reference's single full-model engine (the ``reference`` fixture) on
+multi-stage placements, and release every node's pages or slots; the
+copied planner must place like the reference's; and the port's serve
+driver must run end to end on the CPU (cluster paged and dense, and the
+single-node paged engine).
 """
 import dataclasses
 import os
@@ -26,6 +28,7 @@ from repro_torch.core import (LayerRange, ModelProfile, Placement,
 from repro_torch.core.cluster import full_mesh_cluster
 from repro_torch.serving.engine import EngineConfig, Request
 from repro_torch.serving.runtime import ClusterRuntime, InProcessTransport
+from repro_torch.serving.stage_engine import StageEngine
 
 from harness import EC as JEC, make_plan as jmake_plan, pool_for_one_request
 
@@ -103,6 +106,65 @@ def test_cluster_runtime_matches_reference_tokens(gqa_model, port_model,
         sorted(b - a for a, b in assignment.values())
 
 
+DENSE_CASES = {
+    "2stage": ({"n0": (0, 2), "n1": (2, 4)}, 1, 0.0),
+    "2stage-depth2": ({"n0": (0, 3), "n1": (3, 4)}, 2, 1e-3),
+    "3stage": ({"n0": (0, 2), "n1": (2, 3), "n2": (3, 4)}, 1, 2e-3),
+    "3stage-depth2": ({"n0": (0, 1), "n1": (1, 3), "n2": (3, 4)}, 2, 2e-3),
+}
+
+
+def assert_dense_released(rt):
+    """Dense nodes have no pool: every slot is free and holds no tokens."""
+    assert rt.pool_pages_used() == {}
+    for e in rt.engines.values():
+        assert isinstance(e, StageEngine)
+        assert e.free_slots == EC.max_batch and e.kv_tokens_used() == 0
+
+
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_cluster_runtime_matches_reference_tokens(port_model,
+                                                        reference, case):
+    """``paged=False``: dense stage engines, single-shot prefill (one hop
+    per stage, the flash prefill attention kernel's plain version here),
+    dense decode; greedy tokens equal the reference's exactly."""
+    assignment, depth, delay = DENSE_CASES[case]
+    cfg, params = port_model
+    prompts, ref = reference
+    rt, reqs = serve(cfg, params, port_plan(cfg, assignment), prompts,
+                     paged=False, max_inflight=depth,
+                     transport=InProcessTransport(default_delay_s=delay))
+    assert [r.output for r in reqs] == ref
+    assert_dense_released(rt)
+    for e in rt.engines.values():
+        assert e.prefills == len(prompts)      # one pass per request
+    for i in range(len(prompts)):
+        assert len(rt.served[i].stages) == len(assignment)
+
+
+class _DuplicatingTransport(InProcessTransport):
+    """Delivers every prefill payload (a prompt, or a multi-token
+    activation) twice."""
+
+    def send(self, src, dst, payload, nbytes, deliver):
+        super().send(src, dst, payload, nbytes, deliver)
+        if getattr(payload, "ndim", 0) and (
+                payload.ndim == 1 or payload.shape[1] > 1):
+            super().send(src, dst, payload, nbytes, deliver)
+
+
+def test_dense_prefill_drops_duplicate_deliveries(port_model, reference):
+    cfg, params = port_model
+    prompts, ref = reference
+    rt, reqs = serve(cfg, params, port_plan(cfg, DENSE_CASES["3stage"][0]),
+                     prompts, paged=False,
+                     transport=_DuplicatingTransport())
+    assert [r.output for r in reqs] == ref
+    assert [e.prefills for e in rt.engines.values()] == [len(prompts)] * 3
+    assert sum(rt.transport.transfers.values()) > 0
+    assert_dense_released(rt)
+
+
 def test_preemption_keeps_tokens(port_model, reference):
     """A pool that fits one full-budget request forces preemption and
     recompute-on-readmit; the tokens stay the reference's."""
@@ -140,7 +202,7 @@ def test_planner_copy_places_like_reference():
 def test_unported_options_raise(port_model):
     cfg, params = port_model
     p = port_plan(cfg, {"n0": (0, 2), "n1": (2, 4)})
-    for kw in (dict(paged=False), dict(kv_dtype="int8"),
+    for kw in (dict(kv_dtype="int8"),
                dict(draft_cfg=cfg, draft_params=params),
                dict(realtime=True)):
         with pytest.raises(NotImplementedError):
@@ -160,13 +222,46 @@ def test_entry_points_default_to_cuda(port_model, monkeypatch):
         init(cfg, 0)
 
 
-def test_serve_cli_smoke_on_cpu():
+def _serve_cli(*args):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "smollm_360m", "--smoke", "--cluster", "A100,L4", "--stages", "2",
-         "--device", "cpu", "--prompt", "20", "--new-tokens", "4"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+         "smollm_360m", "--smoke", "--device", "cpu", "--new-tokens", "4",
+         *args], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "pools drained on every node" in res.stdout
-    assert "n0 -> n1" in res.stdout
+    return res.stdout
+
+
+def test_serve_cli_smoke_on_cpu():
+    out = _serve_cli("--cluster", "A100,L4", "--stages", "2", "--prompt",
+                     "20")
+    assert "pools drained on every node" in out
+    assert "n0 -> n1" in out
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_serve_cli_dense_and_paged_on_cpu(mode):
+    """``--cluster ... --dense`` (prompts of two lengths) and the
+    single-node ``--paged`` engine (prompts past the 16-token chunk)."""
+    if mode == "dense":
+        out = _serve_cli("--cluster", "A100,L4", "--stages", "2", "--dense",
+                         "--prompt", "20,9")
+        assert "dense caches released on every node" in out
+        assert "cluster (dense): 4 reqs, 16 tokens" in out
+    else:
+        out = _serve_cli("--paged", "--prompt", "40", "--batch", "3")
+        assert "paged: 3 reqs, 12 tokens" in out and "pool drained" in out
+
+
+def test_serve_cli_mesh_path_raises():
+    """Neither --cluster nor --paged: the reference's sharded mesh path,
+    not ported."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "smollm_360m", "--smoke", "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "NotImplementedError" in res.stderr
+    assert "queue 1 item 8" in res.stderr
