@@ -8,7 +8,9 @@ Phases (any failure raises and the script exits non-zero):
                 off for matmuls and convolutions.
   2. build    — compiles both kernels (paged_attention.cu, K1, and
                 flash_attention.cu, K2) with nvcc for sm_90a from
-                ``src/repro_torch/csrc``, the two builds started together.
+                ``src/repro_torch/csrc``, the two builds started together;
+                prints each instance's registers, shared memory and spills
+                (-Xptxas -v); a K2 instance that spills fails the run.
   3. K1       — paged decode attention against its plain PyTorch version
                 on the card: smoke and full smollm shapes, ragged lengths
                 (1, page, page+1, NP*page, and 0), lengths that cross the
@@ -22,29 +24,38 @@ Phases (any failure raises and the script exits non-zero):
   4. K2       — flash prefill attention against its plain version: every
                 mask (causal, bidirectional, causal + window 100) at every
                 D 16, 64, 128, G 1, 3, 4 and Sq = Sk in {1, 37, 64, 65,
-                511, 2048}, B 1 or 3 in turn; Sq != Sk both ways; strided
-                (B,S,H,D) views; an empty q launches nothing.  f32: max
-                error <= 1e-5; bf16: each element within 2**-7 x |plain|
-                + 1e-5 (one output rounding of that element).
+                127, 128, 129, 511, 2048, 4096}, B 1 or 3 in turn; Sq != Sk
+                both ways; strided (B,S,H,D) views; an empty q launches
+                nothing.  f32 (CUDA-core kernel): max error <= 1e-5; bf16
+                (tensor-core kernel, every bf16 case counted through it):
+                each element within 2**-7 x |plain| + 1e-5 (one output
+                rounding of that element).  Prints the worst error over
+                its limit of each dtype.
   5. serving  — full-width smollm-360m in bf16 through ``launch/serve.py
                 --cluster A100,L4 --stages 2``: paged (4 x 40-token prompts,
                 16 new tokens; K1 launches == decode passes x paged layers,
                 K2 none) and ``--dense`` (prompts of 37, 128, 300 and 511
                 tokens, 16 new tokens, max_len 576; K2 launches == 32 x
-                request prefills, K1 none).  Every request done, every pool
-                or slot released, >= 2 nodes per request; tokens/s printed.
-  6. engines  — ``Engine`` (K2 launches == 32 x prefills) and
-                ``PagedEngine`` (``--paged``; K1 launches == 32 x decode
-                steps) at full width.
+                request prefills, all through the tensor-core kernel, K1
+                none).  Every request done, every pool or slot released,
+                >= 2 nodes per request; tokens/s printed.
+  6. engines  — ``Engine`` (K2 launches == 32 x prefills, all through the
+                tensor-core kernel) and ``PagedEngine`` (``--paged``; K1
+                launches == 32 x decode steps) at full width.
   7. profile  — both cluster runs again under ``torch.profiler``: device
                 busy time against the unprofiled wall time, top kernels.
-  8. timings  — CUDA events, median of 100 launches after warm-up: K1 at
-                the serving decode shape and B=32, L=2048 beside its plain
+  8. timings  — CUDA events around each launch (the host's launch
+                included), median of 100 after warm-up (plain versions:
+                20): K1 at the serving decode shape and B=32, L=2048 beside
+                its plain
                 version, its bound and ``scaled_dot_product_attention`` on
                 already gathered K/V (a yardstick, not the same function);
-                K2 at B=1, S=511 and S=4096, causal, beside its plain
-                version, its bound and ``scaled_dot_product_attention``
-                (the same function).  The port never calls SDPA.
+                K2 at B=1, causal, bf16: H=15, KH=5, D=64 at S=511 and
+                S=4096, and H=32, KH=8, D=128 at S=4096, in turns with its
+                plain version and ``scaled_dot_product_attention`` (the
+                same function), then both again as 20 calls in a CUDA
+                graph (no host launch in the time), with TFLOP/s and the
+                share of its bound.  The port never calls SDPA.
   9. cross-checks, f32 — the paged cluster at full depth on cuda and on
                 the CPU (plain versions), same weights: first-prefill and
                 first-decode logits allclose at atol=rtol=1e-3, tokens
@@ -62,6 +73,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -318,9 +330,11 @@ def k2_check(name, q, k, v, mask, *, bshd=False):
     """One K2 case against its plain version on the same inputs.  f32:
     max error <= 1e-5 (the same fp32 math in another order).  bf16: each
     element within 2**-7 x |plain| + 1e-5 of its plain value: both compute
-    in fp32 (to within the f32 bound) and round the output once, so they
-    differ by at most one bf16 ulp of that element (an ulp is <= 2**-7 of
-    the value)."""
+    in fp32 (the kernel's P.V from P split into bf16 hi and lo parts, within
+    2**-17 of fp32 P) and round the output once, so they differ by at most
+    one bf16 ulp of that element (an ulp is <= 2**-7 of the value).
+    Returns (max abs error, worst error over its limit); a case out of
+    bounds is printed and fails the run."""
     kw = K2_MASKS[mask]
     if bshd:       # model layout, passed as strided views
         out = k2_ops.flash_attention_bshd(q, k, v, **kw)
@@ -338,8 +352,9 @@ def k2_check(name, q, k, v, mask, *, bshd=False):
         limit = BF16_REL_TO_MAX * ref.float().abs() + K2_F32_ATOL
     worst = (diff / limit).max().item()       # <= 1 passes
     ok = worst <= 1.0 and bool(torch.isfinite(out.float()).all())
-    print(f"  {name:<58} {mask:<16} max|kernel-plain| = {err:.3e}, "
-          f"worst err/limit {worst:.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        print(f"  {name} {mask}: max|kernel-plain| = {err:.3e}, worst "
+              f"err/limit {worst:.3f} FAIL")
     require(ok, f"flash_attention disagrees with its plain version on "
                 f"{name} {mask}: max abs err {err}, worst err/limit {worst}")
     return err, worst
@@ -352,33 +367,43 @@ def k2_inputs(B, H, KH, Sq, Sk, D, dtype, gen):
     return q, k, v
 
 
+K2_SEQS = (1, 37, 64, 65, 127, 128, 129, 511, 2048, 4096)
+
+
 def k2_checks():
-    """Every mask at every G: D 16/64/128 x G 1/3/4 x Sq = Sk in {1, 37,
-    64, 65, 511, 2048} x three masks, B 1 or 3 in turn, f32 and bf16;
+    """Every mask at every G: D 16/64/128 x G 1/3/4 x Sq = Sk in K2_SEQS
+    (across the f32 kernel's 64-row and the bf16 kernel's 128-row tiles, up
+    to a long prompt) x three masks, B 1 or 3 in turn, f32 and bf16;
     Sq != Sk both ways; strided (B,S,H,D) inputs, among them slices of one
-    fused qkv tensor; an empty q launches nothing.  Returns the largest
-    abs error and the largest error over its limit."""
+    fused qkv tensor; an empty q launches nothing.  Every bf16 launch goes
+    through the tensor-core kernel.  Prints one line per (dtype, D) group
+    and returns the worst error over its limit of each dtype and the
+    largest abs error."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    errs = []
-    n = 0
+    groups = {}           # (dtype, D or case kind) -> [(err, worst, name)]
+
+    def run(dt, key, name, *args, **kw):
+        err, worst = k2_check(name, *args, **kw)
+        groups.setdefault((dt, key), []).append((err, worst, name))
+
+    tc_before, all_before = k2.tc_launches, k2.launches
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype)[6:]
-        for D, G, S in itertools.product((16, 64, 128), (1, 3, 4),
-                                         (1, 37, 64, 65, 511, 2048)):
+        n = 0
+        for D, G, S in itertools.product((16, 64, 128), (1, 3, 4), K2_SEQS):
             for mask in K2_MASKS:
                 B = (1, 3)[n % 2]
                 n += 1
                 KH = 2 if D == 16 else 5 if D == 64 else 2
                 q, k, v = k2_inputs(B, KH * G, KH, S, S, D, dtype, gen)
-                errs.append(k2_check(
-                    f"{dt} B={B} H={KH * G} KH={KH} S={S} D={D}",
-                    q, k, v, mask))
+                run(dt, f"D={D}", f"{dt} B={B} H={KH * G} KH={KH} S={S} "
+                    f"D={D}", q, k, v, mask)
         for Sq, Sk in ((37, 511), (511, 37), (65, 2048), (2048, 65),
                        (1, 100), (100, 1), (300, 129)):
             for mask in K2_MASKS:
                 q, k, v = k2_inputs(2, 15, 5, Sq, Sk, 64, dtype, gen)
-                errs.append(k2_check(f"{dt} B=2 H=15 KH=5 Sq={Sq} Sk={Sk} "
-                                     f"D=64", q, k, v, mask))
+                run(dt, "Sq!=Sk", f"{dt} B=2 H=15 KH=5 Sq={Sq} Sk={Sk} D=64",
+                    q, k, v, mask)
         for S, D, H, KH in ((511, 64, 15, 5), (300, 128, 8, 2),
                             (65, 16, 4, 2)):
             for mask in K2_MASKS:
@@ -386,61 +411,139 @@ def k2_checks():
                                   device=DEVICE).to(dtype)
                 q, k, v = (qkv[:, :, :H], qkv[:, :, H:H + KH],
                            qkv[:, :, H + KH:])
-                errs.append(k2_check(f"{dt} fused-qkv (B,S,H,D) views S={S} "
-                                     f"H={H} KH={KH} D={D}", q, k, v, mask,
-                                     bshd=True))
+                run(dt, "(B,S,H,D)", f"{dt} fused-qkv (B,S,H,D) views S={S} "
+                    f"H={H} KH={KH} D={D}", q, k, v, mask, bshd=True)
                 q, k, v = (x.transpose(1, 2).contiguous()
                            for x in k2_inputs(2, H, KH, S, S, D, dtype, gen))
-                errs.append(k2_check(f"{dt} (B,S,H,D) S={S} H={H} KH={KH} "
-                                     f"D={D}", q, k, v, mask, bshd=True))
+                run(dt, "(B,S,H,D)", f"{dt} (B,S,H,D) S={S} H={H} KH={KH} "
+                    f"D={D}", q, k, v, mask, bshd=True)
+    for (dt, key), rows in groups.items():
+        err, worst, name = max(rows, key=lambda r: r[1])
+        print(f"  {dt:<9} {key:<10} {len(rows):>3} cases: max|kernel-plain| "
+              f"= {max(r[0] for r in rows):.3e}, worst err/limit "
+              f"{worst:.3f} ({name})")
+    n_bf16 = sum(len(r) for (dt, _), r in groups.items() if dt == "bfloat16")
+    require(k2.tc_launches - tc_before == n_bf16 and
+            k2.launches - all_before == sum(map(len, groups.values())),
+            f"{k2.tc_launches - tc_before} tensor-core launches for "
+            f"{n_bf16} bf16 cases")
     before = k2.launches
     q, k, v = k2_inputs(2, 15, 5, 0, 37, 64, torch.bfloat16, gen)
     empty = flash_attention(q, k, v)
     require(empty.shape == q.shape and k2.launches == before,
             "flash_attention launched (or counted) a kernel for an empty q")
-    print(f"  {len(errs)} cases; empty q (Sq=0): no launch, none counted")
-    return max(e for e, _ in errs), max(w for _, w in errs)
+    worst = {dt: max(w for (d, _), rows in groups.items() if d == dt
+                     for _, w, _ in rows) for dt in ("float32", "bfloat16")}
+    print(f"  {sum(map(len, groups.values()))} cases, all within their "
+          f"bounds; worst err/limit f32 {worst['float32']:.3f} (limit "
+          f"{K2_F32_ATOL:g}), bf16 {worst['bfloat16']:.3f} (limit 2**-7 x "
+          f"|plain| + {K2_F32_ATOL:g}); every bf16 case through the "
+          f"tensor-core kernel ({n_bf16} launches); empty q (Sq=0): no "
+          f"launch, none counted")
+    err = max(e for rows in groups.values() for e, _, _ in rows)
+    return err, worst
+
+
+def k2_work(q, k, causal):
+    """The bytes the function must move (q, k, v read once, out written
+    once) and its FLOPs, 4*D per visible (query, key) pair per query
+    head."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    return nbytes, 4 * B * H * D * pairs
 
 
 def k2_bound(q, k, causal):
-    """Least time for the same work: q, k, v read once and out written
-    once over HBM bandwidth vs 4*D FLOPs per visible (query, key) pair per
-    query head over the bf16 (or fp32) peak; the larger bounds it."""
-    B, H, Sq, D = q.shape
-    Sk = k.shape[2]
-    elt = q.element_size()
-    nbytes = elt * (2 * q.numel() + 2 * k.numel())
-    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
-             else Sq * Sk)
-    flops = 4 * B * H * D * pairs
+    """Least time for the same work: its bytes over HBM bandwidth vs its
+    FLOPs over the bf16 (or fp32) peak; the larger bounds it."""
+    nbytes, flops = k2_work(q, k, causal)
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
+def time_turns(fns):
+    """Median ms of each of ``fns`` (name -> (fn, launches per turn)),
+    timed in turns: the order, then the order reversed."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for names in (order, order[::-1]):
+        for name in names:
+            fn, n = fns[name]
+            times[name].append(time_ms(fn, reps=n))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def graph_ms(fn, calls=20):
+    """Time of one call of ``fn`` without the host's launch: ``calls``
+    calls captured in one CUDA graph, its replay timed with CUDA events
+    (median of 10 after a warm-up), divided by ``calls``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()               # first call off the default stream, for capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps=10, warmup=1) / calls
+
+
+K2_TIMING_SHAPES = {       # key -> (H, KH, S, D), B=1, causal, bf16
+    "S511": (15, 5, 511, 64),          # the dense serving prefill
+    "S4096": (15, 5, 4096, 64),
+    "D128_S4096": (32, 8, 4096, 128),
+}
+
+
 def k2_timings():
-    """K2 at the dense serving shape (one 511-token prompt) and at
-    B=1, S=4096, causal, bf16, beside its plain version, its bound and
-    ``scaled_dot_product_attention`` (the same function for causal
-    Sq = Sk; timed only, the port never calls it)."""
+    """K2 (the tensor-core kernel) at the dense serving shape (one
+    511-token prompt), at S=4096 and at S=4096 with H=32, KH=8, D=128,
+    causal, bf16; timed with CUDA events around each call (the host's
+    launch included), in turns with its plain version and with
+    ``scaled_dot_product_attention`` (the same function for causal Sq =
+    Sk; timed only, the port never calls it), then without the host's
+    launch (``graph_ms``); beside its bound, with TFLOP/s counting 4*H*D
+    per visible pair."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for key, S in (("S511", 511), ("S4096", 4096)):
-        q, k, v = k2_inputs(1, 15, 5, S, S, 64, torch.bfloat16, gen)
-        ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
-                           reps=20)
-        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                      enable_gqa=True))
+    for key, (H, KH, S, D) in K2_TIMING_SHAPES.items():
+        q, k, v = k2_inputs(1, H, KH, S, S, D, torch.bfloat16, gen)
+        t = time_turns({
+            "kernel": (lambda: flash_attention(q, k, v, causal=True), 50),
+            "library": (lambda: sdpa(q, k, v, is_causal=True,
+                                     enable_gqa=True), 50),
+            "plain": (lambda: flash_attention_ref(q, k, v, causal=True),
+                      10)})
+        dev = graph_ms(lambda: flash_attention(q, k, v, causal=True))
+        lib_dev = graph_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True))
         bound_ms, bound_by = k2_bound(q, k, True)
-        out[key] = dict(shape=f"B=1 H=15 KH=5 S={S} D=64 causal bf16",
-                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=lib_ms)
-        print(f"  {key}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})",
-              flush=True)
+        flops = k2_work(q, k, True)[1]
+        out[key] = dict(shape=f"B=1 H={H} KH={KH} S={S} D={D} causal bf16",
+                        ms=t["kernel"], plain_ms=t["plain"],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=t["library"],
+                        tflops=flops / t["kernel"] / 1e9,
+                        bound_share=bound_ms / t["kernel"],
+                        graph_ms=dev, library_graph_ms=lib_dev,
+                        graph_tflops=flops / dev / 1e9,
+                        graph_bound_share=bound_ms / dev)
+        r = out[key]
+        print(f"  {key} ({r['shape']}): kernel {r['ms']:.4f} ms = "
+              f"{r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}% of "
+              f"the bound {bound_ms:.5f} ms ({bound_by}); in a CUDA graph "
+              f"{dev:.4f} ms = {r['graph_tflops']:.1f} TFLOP/s, "
+              f"{100 * r['graph_bound_share']:.1f}% of the bound; sdpa "
+              f"{r['library_ms']:.4f} ms, in a CUDA graph {lib_dev:.4f} ms = "
+              f"{flops / lib_dev / 1e9:.1f} TFLOP/s; plain "
+              f"{r['plain_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -494,6 +597,7 @@ class LastStageLogits:
 def zero_counts():
     k1.launches = 0
     k2.launches = 0
+    k2.tc_launches = 0
 
 
 def check_requests(cfg, reqs, new_tokens, served=None, rec=None):
@@ -554,7 +658,8 @@ def dense_serving_phase(cfg, params, card):
     zero_counts()
     with LastStageLogits() as rec:
         rt, reqs, p, dt = serve.run_cluster(cfg, args, params)
-    launches, k1_launches = k2.launches, k1.launches
+    launches, tc_launches, k1_launches = (k2.launches, k2.tc_launches,
+                                          k1.launches)
     toks = sum(len(r.output) for r in reqs)
     check_requests(cfg, reqs, args.new_tokens, rt.served, rec)
     require(all(isinstance(e, StageEngine) for e in rt.engines.values()),
@@ -568,6 +673,9 @@ def dense_serving_phase(cfg, params, card):
     require(launches == cfg.num_layers * prefills == passes,
             f"{launches} flash_attention launches, expected "
             f"{cfg.num_layers} x {prefills} request prefills = {passes}")
+    require(tc_launches == launches,
+            f"{tc_launches} of {launches} bf16 flash_attention launches "
+            "went through the tensor-core kernel")
     require(k1_launches == 0, f"{k1_launches} paged_attention launches on "
                               "the dense path, expected 0")
     print(f"  placement: " + ", ".join(
@@ -575,11 +683,17 @@ def dense_serving_phase(cfg, params, card):
         for n, r in sorted(p.placement.assignment.items())))
     print(f"  flash_attention launches: {launches} = {cfg.num_layers} layers "
           f"x {prefills} request prefills (prompts "
-          f"{[len(r.prompt) for r in reqs]}); paged_attention launches: 0")
+          f"{[len(r.prompt) for r in reqs]}), all {tc_launches} through "
+          "the tensor-core kernel; paged_attention launches: 0")
     print(f"  dense serving: {len(reqs)} requests, {toks} tokens in "
           f"{dt:.4f} s = {toks / dt:.2f} tokens/s on {card} (host clock, "
           f"after a warm-up run)")
-    return launches, toks / dt, dt
+    return (launches, tc_launches), toks / dt, dt
+
+
+# kernel names as the profiler shows them
+K_NAMES = {"K1": ("paged_attention_kernel",),
+           "K2": ("flash_attention_tc_kernel", "flash_attention_f32_kernel")}
 
 
 def profile_phase(cfg, params, walls):
@@ -611,14 +725,14 @@ def profile_phase(cfg, params, walls):
             continue
         busy = sum(ms for _, ms, _ in rows)
         wall = 1e3 * walls[name]
-        ours = {k: sum(ms for key, ms, _ in rows if k in key)
-                for k in ("paged_attention_kernel", "flash_attention_kernel")}
+        ours = {k: sum(ms for key, ms, _ in rows
+                       if any(n in key for n in names))
+                for k, names in K_NAMES.items()}
         print(f"  {name}: device busy {busy:.1f} ms in "
               f"{sum(n for _, _, n in rows)} kernels and copies = "
               f"{100 * busy / wall:.1f}% of the unprofiled wall time "
               f"{wall:.1f} ms (profiled wall {1e3 * dt:.1f} ms); K1 "
-              f"{ours['paged_attention_kernel']:.2f} ms, K2 "
-              f"{ours['flash_attention_kernel']:.2f} ms")
+              f"{ours['K1']:.2f} ms, K2 {ours['K2']:.2f} ms")
         for key, ms, n in rows[:8]:
             print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<6} "
                   f"{key[:90]}")
@@ -654,14 +768,17 @@ def engines_phase(cfg, params):
     eng, reqs, dt = _run_engine(cfg, params, args)
     check_requests(cfg, reqs, args.new_tokens)
     require(k2.launches == cfg.num_layers * eng.prefills > 0 and
-            k1.launches == 0,
-            f"Engine: {k2.launches} flash_attention launches for "
-            f"{eng.prefills} prefills, {k1.launches} paged_attention")
+            k2.tc_launches == k2.launches and k1.launches == 0,
+            f"Engine: {k2.launches} flash_attention launches "
+            f"({k2.tc_launches} tensor-core) for {eng.prefills} prefills, "
+            f"{k1.launches} paged_attention")
     require(not eng.active.any(), "Engine: slots still active")
     toks = sum(len(r.output) for r in reqs)
     print(f"  Engine: {len(reqs)} requests, {toks} tokens in {dt:.4f} s; "
           f"flash_attention launches {k2.launches} = {cfg.num_layers} x "
-          f"{eng.prefills} prefills; paged_attention 0")
+          f"{eng.prefills} prefills, all {k2.tc_launches} tensor-core; "
+          "paged_attention 0")
+    engine_k2 = (k2.launches, k2.tc_launches)
 
     paged = serve.parse_args(ENGINES_ARGV + ["--paged", "--device", DEVICE])
     serve.run_paged(cfg, serve.parse_args(
@@ -681,6 +798,7 @@ def engines_phase(cfg, params):
           f"{pdt:.4f} s; paged_attention launches {k1.launches} = "
           f"{cfg.num_layers} x {peng.decode_steps} decode steps; "
           f"flash_attention 0; pool drained")
+    return engine_k2
 
 
 def _xcheck_runs(cfg, params, argv):
@@ -755,17 +873,80 @@ def dense_cross_check(cfg32, params32):
 
 # ---------------------------------------------------------------------------
 
+def _kernel_name(mangled):
+    """``..._25flash_attention_tc_kernelILi64EEEv...`` ->
+    ``flash_attention_tc_kernel<64>``: the length-prefixed identifier that
+    ends in ``_kernel``, with its integer template arguments (or, where it
+    has none, its mangled ones)."""
+    for pos in range(len(mangled)):     # a prefix may end a run of digits
+        m = re.compile(r"\d+").match(mangled, pos)
+        if not m:
+            continue
+        ident = mangled[m.end():m.end() + int(m.group())]
+        rest = mangled[m.end() + len(ident):]
+        if ident.endswith("_kernel") and rest.startswith("I"):
+            args = re.match(r"I(\w*?)EE", rest)
+            raw = args.group(1) if args else ""
+            ints = re.findall(r"Li(\d+)E", raw + "E")
+            return f"{ident}<{','.join(ints) if ints else raw}>"
+    return mangled
+
+
+def ptxas_report(log):
+    """Each entry function's registers, static shared memory, stack and
+    spills, from nvcc's -Xptxas -v output."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            name = _kernel_name(m.group(1))
+            cur = dict(name=name, regs=None, smem=0, stack=None,
+                       spill_stores=None, spill_loads=None)
+            entries.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                    int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["regs"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = int(m.group(1)) if m else 0
+    return entries
+
+
 def build_all():
-    """Both kernels' nvcc builds, started together."""
+    """Both kernels' nvcc builds, started together.  Prints each instance's
+    registers, shared memory and spills (-Xptxas -v) and any ptxas warning;
+    a K2 instance that spills fails the run."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         libs = list(pool.map(lambda m: m.build(), (k1, k2)))
     print(f"  built {', '.join(os.path.relpath(l, ROOT) for l in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for m in (k1, k2):
+        if not m.build_log:
+            print(f"  {m.__name__}: library built before this run, no ptxas "
+                  "report")
+            continue
         for line in m.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "warning" in line.lower():
                 print("  " + line.strip())
+        for e in ptxas_report(m.build_log):
+            dyn = ""
+            if m is k2:
+                kind, D = re.match(r"flash_attention_(\w+)_kernel<(\d+)>",
+                                   e["name"]).groups()
+                dyn = f", {k2.smem_bytes(kind == 'tc', int(D))} B dynamic smem"
+            print(f"  {e['name']}: {e['regs']} registers, {e['smem']} B "
+                  f"static smem{dyn}, {e['stack']} B stack, spill stores "
+                  f"{e['spill_stores']} B, spill loads {e['spill_loads']} B")
+            if m is k2:
+                require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
+                        f"{e['name']} spills registers")
 
 
 def main() -> int:
@@ -808,7 +989,7 @@ def main() -> int:
                                                            card)
 
     phase("engines: Engine and PagedEngine")
-    engines_phase(cfg, params)
+    engine_k2 = engines_phase(cfg, params)
 
     phase("profile: where the serving time goes")
     profile_phase(cfg, params, {"paged cluster": paged_s,
@@ -836,7 +1017,8 @@ def main() -> int:
     # through the block table included), so library_ms is null and
     # yardstick_ms is scaled_dot_product_attention on K/V gathered
     # beforehand.  K2: scaled_dot_product_attention computes the same
-    # function for causal Sq = Sk.
+    # function for causal Sq = Sk; its launches are the dense cluster's
+    # (all through the tensor-core kernel, as the Engine phase's were).
     record = {"kernels": [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -849,12 +1031,14 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
-         "launches": k2_launches, "max_abs_err": k2_err,
-         "worst_err_over_limit": k2_worst,
+         "launches": k2_launches[0], "tc_launches": k2_launches[1],
+         "engine_launches": engine_k2[0], "engine_tc_launches": engine_k2[1],
+         "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
-         "library_ms": main2["library_ms"], "shape": main2["shape"],
-         "S4096": t2["S4096"]}]}
+         "library_ms": main2["library_ms"], "tflops": main2["tflops"],
+         "bound_share": main2["bound_share"], "shape": main2["shape"],
+         "S4096": t2["S4096"], "D128_S4096": t2["D128_S4096"]}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

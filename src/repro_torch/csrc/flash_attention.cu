@@ -5,38 +5,68 @@
 // and computes what it computes: blockwise attention of q (B,H,Sq,D) over
 // k/v (B,KH,Sk,D), query head h reading kv head h / G, with an fp32 online
 // softmax (running max, denominator, accumulator) over the kv tiles in
-// order; q is cast to fp32 and scaled by 1/sqrt(D), the probabilities stay
-// fp32 for the P.V product, and the denominator is clamped at 1e-30.
-// Masks are aligned top-left (query i and key j both count from 0, also
-// when Sq != Sk): causal keeps j <= i, a window keeps i - j < window, keys
-// at j >= Sk are masked and their V rows read as 0.  A query row that sees
-// no key at all (only possible with a window and Sq > Sk + window - 1)
+// order; the scores are scaled by 1/sqrt(D) in fp32, the probabilities keep
+// fp32 precision in the P.V product, and the denominator is clamped at
+// 1e-30.  Masks are aligned top-left (query i and key j both count from 0,
+// also when Sq != Sk): causal keeps j <= i, a window keeps i - j < window,
+// keys at j >= Sk are masked and their V rows read as 0.  A query row that
+// sees no key at all (only possible with a window and Sq > Sk + window - 1)
 // yields 0; the Pallas kernel's output there depends on its tile size.
 //
-// What bounds it on an H100: operations.  A 64-row query tile reads each
-// K/V element once per tile and uses it for 64 multiply-adds, so at the
-// serving shapes (S >= 512) the work is ~4*B*H*D FLOPs per visible
-// (query, key) pair against a few bytes per pair; the least time is those
-// FLOPs over the tensor cores' 989 TFLOP/s (bf16).  This kernel does them
-// in fp32 on the CUDA cores (67 TFLOP/s), so it cannot come near that
-// bound; tensor cores (wgmma fed by TMA) are later work.
+// Two kernels, chosen by dtype (a dispatch, not a fallback):
 //
-// What the design does about it:
-//  * one block per (query tile of 64 rows, query head, batch); a loop in
-//    the block walks the 64-row K/V tiles, which replaces the Pallas grid's
-//    sequential kv axis, with max, denominator and accumulator of each row
-//    held in registers in fp32;
-//  * tiles wholly past the causal diagonal or wholly before the window are
-//    skipped (half of the causal work), which leaves the result unchanged;
-//  * 256 threads as a 16 x 16 grid: thread (ty, tx) owns query rows
-//    ty + 16*i (i < 4) and key columns tx + 16*j of the score tile, and the
-//    same rows and head-dim columns tx + 16*j of the accumulator, so the
-//    row max and sum are reduced with shuffles across the 16 lanes of tx;
-//  * K rows in shared memory are padded to D + 1 floats, so the 16 lanes
-//    that read 16 different keys at one d hit 16 different banks;
-//  * q, k and v are read through element strides (D contiguous), so the
-//    model layout (B,S,H,D) is passed without a copy, and the output is
-//    written through strides the same way.
+// bf16: flash_attention_tc_kernel, on the tensor cores.
+//   What bounds it on an H100: operations.  Each visible (query, key) pair
+//   costs 4*D FLOPs per query head (Q.K^T and P.V) against a few bytes per
+//   pair, so at prefill lengths the least time is those FLOPs over the
+//   tensor cores' 989 TFLOP/s (bf16).  Design:
+//    * one CTA per (query head, batch, 128-row query tile), 384 threads:
+//      warpgroup 0 is the producer (one thread issues every TMA load; the
+//      group gives its registers away with setmaxnreg), warpgroups 1 and 2
+//      are consumers, 64 query rows each, with 232 registers a thread;
+//    * Q is loaded once by TMA; K and V tiles of 128 keys (64 at D = 128,
+//      where 128 spill registers) come through a 2-stage ring in shared
+//      memory, loaded by cp.async.bulk.tensor and guarded by full (TMA
+//      bytes arrived) and empty (8 consumer warps done) mbarriers.  A wait
+//      that never ends traps instead of hanging.  The tensor maps are built per call on the host
+//      from the element strides, dims (D, S, heads, B), so the strided
+//      (B,S,H,D) views of ops.flash_attention_bshd and slices of one fused
+//      qkv tensor need no copy.  Rows past the end of the tensor arrive as
+//      zeros (V rows past Sk read as 0); keys at j >= Sk are still masked,
+//      since a zero K row scores 0, not -inf.  The maps' swizzle (128 B
+//      for D = 64 and 128, 32 B for D = 16) is the one the wgmma
+//      descriptors name;
+//    * S = Q.K^T is a bf16 wgmma (A and B from shared memory) into fp32
+//      registers: bf16 products are exact in fp32.  1/sqrt(D) is applied
+//      in fp32 after the product.  Running max, denominator and the O
+//      accumulator stay fp32 in registers; exponentials are exp2 of
+//      s * (log2(e)/sqrt(D)) - m, one FMA per element;
+//    * P.V is TWO bf16 wgmmas into one fp32 accumulator, P_hi.V + P_lo.V
+//      with P_hi = bf16(p) and P_lo = bf16(p - P_hi), P from registers (the
+//      S accumulator's layout is the A fragment's), V read from shared
+//      memory with the transpose bit.  Why the split: the Pallas kernel
+//      keeps P in fp32 for P.V, and the port is held to one output ulp per
+//      element (2**-7 * |plain| + 1e-5).  A model of this kernel's
+//      arithmetic on bf16 randn inputs (B=1, H=KH=3, D=64, causal, 128-key
+//      tiles) missed that bound by 47.7x, 65.5x and 98.6x at S = 511, 2048
+//      and 4096 with P rounded to bf16 once, and met it (0.972, 0.965,
+//      0.972 of the bound) with the split, as fp32 P does (0.776-0.965).
+//      p - P_hi is exact in fp32 and P_lo keeps 8 more bits, so P_hi + P_lo
+//      is within 2**-17 of p.  The split costs a third product: 6*D FLOPs
+//      executed per visible pair instead of 4*D;
+//    * tiles wholly past the causal diagonal or wholly before the window
+//      are skipped; only tiles that cross a mask edge or Sk pay for the
+//      per-element mask.  The query tiles are launched longest first
+//      (blockIdx.z reversed, slowest grid axis), so the causal grid's long
+//      tiles do not fall into the last wave;
+//    * the epilogue divides by max(l, 1e-30), rounds once to bf16 (RNE) and
+//      writes bf16 pairs through the output's strides.
+//
+// f32: flash_attention_f32_kernel, on the CUDA cores (the first port's
+//   design, kept for f32 inputs, which it matches to 1e-5): one block per
+//   (64-row query tile, query head, batch), 256 threads as a 16 x 16 grid,
+//   fp32 FMAs; K rows padded to D + 1 floats in shared memory.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,29 +74,18 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kTile = 64;       // query rows per block and keys per kv tile
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kRows = kTile / 16;
-
-enum DType : int { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch's cast
-}
 
 struct Strides {
   long long b, h, s;            // element strides; d is contiguous
 };
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;       // query rows per block and keys per kv tile
+constexpr int kThreads = 256;   // 16 x 16
+constexpr int kRows = kTile / 16;
 
 // Shared memory (floats) for head dim D:
 //   q  kTile*D        query tile, fp32, pre-scaled
@@ -78,12 +97,12 @@ __host__ __device__ constexpr size_t smem_bytes(int D) {
                                   kTile * (kTile + 1));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int H, int KH, int Sq, int Sk, Strides qs,
-    Strides ks, Strides vs, Strides os, int causal, int window,
-    float scale) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int H, int KH,
+    int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+    int causal, int window, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kTile + 1;
   constexpr int DC = D / 16;    // accumulator columns per thread
@@ -101,14 +120,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   float* v_s = k_s + kTile * DP;
   float* p_s = v_s + kTile * D;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kh * ks.h;
-  const T* vb = v + b * vs.b + kh * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kh * ks.h;
+  const float* vb = v + b * vs.b + kh * vs.h;
 
   for (int i = tid; i < kTile * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int qpos = q0 + r;
-    q_s[i] = qpos < Sq ? to_float(qb[qpos * qs.s + d]) * scale : 0.f;
+    q_s[i] = qpos < Sq ? qb[qpos * qs.s + d] * scale : 0.f;
   }
 
   // the kv range any row of this tile can see
@@ -133,8 +152,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       const int r = i / D, d = i % D;
       const int kpos = k0 + r;
       const bool in = kpos < Sk;
-      k_s[r * DP + d] = in ? to_float(kb[kpos * ks.s + d]) : 0.f;
-      v_s[r * D + d] = in ? to_float(vb[kpos * vs.s + d]) : 0.f;
+      k_s[r * DP + d] = in ? kb[kpos * ks.s + d] : 0.f;
+      v_s[r * D + d] = in ? vb[kpos * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -208,7 +227,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     }
   }
 
-  T* ob = out + b * os.b + h * os.h;
+  float* ob = out + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qpos = q0 + ty + 16 * i;
@@ -216,17 +235,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      ob[qpos * os.s + tx + 16 * j] = from_float<T>(acc[i][j] * inv);
+      ob[qpos * os.s + tx + 16 * j] = acc[i][j] * inv;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int KH, int Sq, int Sk, Strides qs,
-                   Strides ks, Strides vs, Strides os, int causal, int window,
-                   float scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, int B, int H, int KH, int Sq, int Sk,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(D);
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_f32_kernel<D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -234,67 +254,623 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   dim3 grid((Sq + kTile - 1) / kTile, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KH, Sq, Sk, qs, ks,
-      vs, os, causal, window, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, KH, Sq, Sk,
+      qs, ks, vs, os, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* out, int B, int H, int KH, int Sq, int Sk,
-                     Strides qs, Strides ks, Strides vs, Strides os,
-                     int causal, int window, float scale,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, B, H, KH, Sq, Sk, qs, ks, vs, os,
-                           causal, window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, H, KH, Sq, Sk, qs, ks, vs, os,
-                           causal, window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, H, KH, Sq, Sk, qs, ks, vs, os,
-                            causal, window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBM = 128;        // query rows per CTA, 64 per consumer group
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kThreads = 384;   // producer warpgroup + 2 consumer groups
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;   // 128*40 + 256*232 <= 65536
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Per head dim: a tile row of D bf16 is stored as kParts blocks of kCols
+// columns (one TMA box each), every block swizzled like the wgmma
+// descriptors say: 128 B rows at D = 64 and 128, 32 B rows at D = 16.
+template <int D>
+struct Cfg {
+  // keys per kv tile; at D = 128, 128-key tiles spill registers (ptxas
+  // gives every instance 168), so that instance takes 64
+  static constexpr int kBN = D == 128 ? 64 : 128;
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kParts = D / kCols;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr uint64_t kLayout = D < 64 ? 3 : 1;   // 32 B / 128 B
+  static constexpr int kPartQ = kBM * kRowBytes;
+  static constexpr int kPartKV = kBN * kRowBytes;
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kKVBytes = kBN * D * 2;
+  static constexpr int kK = kQBytes;               // offsets from the base
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;
+  // barriers: q_full, full_k[stages], full_v[stages], empty[stages]
+  static constexpr int kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;  // + align
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+// Wait for the phase of parity ``parity`` to complete.  A wait of more than
+// ~2**35 cycles (tens of seconds) can only be a lost transfer or arrival:
+// it traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// one box of the 4-d map (d, s, head, batch) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int d, int s, int h, int b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(s), "r"(h), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16 B units) and the swizzle layout (1 = 128 B, 3 = 32 B)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keep the compiler from moving accesses of wgmma registers across the
+// asynchronous product's issue and wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// operand lists: c is the constraint, "+f" (accumulate) or "=f" (overwrite)
+#define F4(c, d, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
+#define F8(c, d, i) F4(c, d, i), F4(c, d, i + 4)
+#define F32(c, d) F8(c, d, 0), F8(c, d, 8), F8(c, d, 16), F8(c, d, 24)
+#define F64(c, d) \
+  F32(c, d), F8(c, d, 32), F8(c, d, 40), F8(c, d, 48), F8(c, d, 56)
+#define R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define R32                                                                  \
+  R8 ", %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "    \
+     "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define R64                                                                  \
+  R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+      "%58, %59, %60, %61, %62, %63"
+
+// d (64 x N, fp32) (+)= A (64 x 16) * B (16 x N), bf16 operands.
+//   ss: A and B from shared memory, both K-major; d = A B when first (the
+//       old d is not read, so it need not stay live), else d += A B.
+//   rs: d += A B, A from registers (4 x bf16x2 a thread), B MN-major
+//       (read with the transpose bit).
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<16> {
+  static __device__ __forceinline__ void rs(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {" R8 "}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : F8("+f", d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
+};
+
+template <>
+struct Mma<64> {
+  template <bool first>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b) {
+    if (first)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32 "}, "
+          "%32, %33, p, 1, 1, 0, 0;\n}\n"
+          : F32("=f", d)
+          : "l"(a), "l"(b), "r"(0));
+    else
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32 "}, "
+          "%32, %33, p, 1, 1, 0, 0;\n}\n"
+          : F32("+f", d)
+          : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32 "}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : F32("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<128> {
+  template <bool first>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b) {
+    if (first)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64 "}, "
+          "%64, %65, p, 1, 1, 0, 0;\n}\n"
+          : F64("=f", d)
+          : "l"(a), "l"(b), "r"(0));
+    else
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64 "}, "
+          "%64, %65, p, 1, 1, 0, 0;\n}\n"
+          : F64("+f", d)
+          : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64 "}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : F64("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+#undef F4
+#undef F8
+#undef F32
+#undef F64
+#undef R8
+#undef R32
+#undef R64
+
+// One consumer warpgroup: 64 query rows [row0_g, row0_g + 64) of the CTA's
+// tile against the n_tiles kv tiles from k_lo.  Thread layout of the wgmma
+// accumulators (64 x N): warp w of the group holds rows 16w + lane/4 and
+// 16w + lane/4 + 8; register 4j + e holds column 8j + 2*(lane%4) + (e&1) of
+// the first row (e < 2) or the second (e >= 2).
+template <int D>
+__device__ __forceinline__ void consume(
+    uint32_t sq, uint32_t sk, uint32_t sv, uint32_t bar, int g,
+    __nv_bfloat16* __restrict__ ob, long long oss, int Sq, int Sk, int q0,
+    int k_lo, int n_tiles, int causal, int window, float scale) {
+  using C = Cfg<D>;
+  constexpr int BN = C::kBN;
+  const uint32_t q_full = bar, full_k = bar + 8, full_v = full_k + 8 * kStages,
+                 empty = full_v + 8 * kStages;
+  const int lane = threadIdx.x % 32;
+  const int w = (threadIdx.x / 32) % 4;
+  const int wr_lo = q0 + 64 * g;           // this group's rows
+  const int wr_hi = wr_lo + 63;
+  const int r0 = wr_lo + 16 * w + lane / 4;  // this thread's rows r0, r0 + 8
+  const int c2 = 2 * (lane % 4);
+  const float sc = scale * kLog2e;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};   // running max of the raw scores
+  float ms[2] = {0.f, 0.f};          // m * sc as used in the exponents
+  float l[2] = {0.f, 0.f};           // this thread's part of the row sums
+
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+  const uint32_t qa = sq + g * 64 * C::kRowBytes;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    const uint32_t ph = (i / kStages) & 1;
+    const int k0 = k_lo + i * BN;
+    const uint32_t ka = sk + st * C::kKVBytes, va = sv + st * C::kKVBytes;
+
+    // S = Q K^T (64 x BN), fp32
+    float s[BN / 2];
+    mbar_wait(full_k + 8 * st, ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int part = kk * 16 / C::kCols;
+      const int off = (kk * 16 % C::kCols) * 2;
+      const uint64_t qd = desc(qa + part * C::kPartQ + off, 16,
+                               8 * C::kRowBytes, C::kLayout);
+      const uint64_t kd = desc(ka + part * C::kPartKV + off, 16,
+                               8 * C::kRowBytes, C::kLayout);
+      if (kk == 0)
+        Mma<BN>::template ss<true>(s, qd, kd);
+      else
+        Mma<BN>::template ss<false>(s, qd, kd);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+
+    // masks: only tiles that cross Sk, the diagonal or the window's edge
+    const bool whole = k0 + BN <= Sk && (!causal || k0 + BN - 1 <= wr_lo) &&
+                       (!window || wr_hi - k0 < window);
+    if (!whole) {
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        const int row = r0 + ((e & 2) ? 8 : 0);
+        const int col = k0 + 8 * (e / 4) + c2 + (e & 1);
+        bool vis = col < Sk;
+        if (causal) vis = vis && col <= row;
+        if (window) vis = vis && row - col < window;
+        if (!vis) s[e] = kNegInf;
+      }
+    }
+
+    // online softmax, fp32; a quad of lanes shares each row
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+    float corr[2], mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with no visible key yet keeps m = -1e30: its exponents use
+      // 0, so masked keys still give exactly 0
+      mu[r] = m_new == kNegInf ? 0.f : m_new * sc;
+      corr[r] = m[r] == kNegInf ? 1.f : ex2(ms[r] - mu[r]);
+      m[r] = m_new;
+      ms[r] = mu[r];
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = ex2(fmaf(s[e], sc, -mu[r]));
+      sum[r] += s[e];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+
+    // P = P_hi + P_lo as bf16 A fragments: k-step t takes S registers
+    // 8t .. 8t+7, register pair 2j, 2j+1 into A register j
+    uint32_t phi[BN / 16][4], plo[BN / 16][4];
+#pragma unroll
+    for (int t = 0; t < BN / 16; ++t)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float a = s[8 * t + 2 * j], b = s[8 * t + 2 * j + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+        const float2 hf = __bfloat1622float2(hi);
+        phi[t][j] = bf16x2_bits(hi);
+        plo[t][j] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+      }
+
+    // O += P_hi V + P_lo V (64 x D), fp32
+    mbar_wait(full_v + 8 * st, ph);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BN / 16; ++t) {
+      const uint64_t vd = desc(va + t * 16 * C::kRowBytes, C::kPartKV,
+                               8 * C::kRowBytes, C::kLayout);
+      Mma<D>::rs(o, phi[t], vd);
+      Mma<D>::rs(o, plo[t], vd);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+
+  // epilogue: full row sums, one division and one bf16 rounding
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= Sq) continue;
+    __nv_bfloat16* orow = ob + row * oss + c2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] / l[r],
+                                o[4 * j + 2 * r + 1] / l[r]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+    Strides os, int H, int KH, int Sq, int Sk, int causal, int window,
+    float scale) {
+  using C = Cfg<D>;
+  constexpr int BN = C::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment: the swizzle pattern repeats every 1024 bytes and
+  // the wgmma descriptors assume tiles that start on it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sq = base, sk = base + C::kK, sv = base + C::kV,
+                 bar = base + C::kBar;
+  const uint32_t q_full = bar, full_k = bar + 8, full_v = full_k + 8 * kStages,
+                 empty = full_v + 8 * kStages;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // longest tiles first
+  const int kh = h / (H / KH);
+  // the kv range any row of this tile can see
+  const int q_last = min(q0 + kBM, Sq) - 1;
+  int k_lo = 0;
+  int k_hi = Sk;
+  if (causal) k_hi = min(Sk, q_last + 1);
+  if (window) k_lo = max(0, q0 - window + 1) / BN * BN;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k + 8 * st, 1);
+      mbar_init(full_v + 8 * st, 1);
+      mbar_init(empty + 8 * st, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
+      for (int p = 0; p < C::kParts; ++p)
+        tma_load(sq + p * C::kPartQ, &tq, p * C::kCols, q0, h, b, q_full);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        const int k0 = k_lo + i * BN;
+        mbar_wait(empty + 8 * st, ph ^ 1);   // the first round passes
+        mbar_expect_tx(full_k + 8 * st, C::kKVBytes);
+        for (int p = 0; p < C::kParts; ++p)
+          tma_load(sk + st * C::kKVBytes + p * C::kPartKV, &tk, p * C::kCols,
+                   k0, kh, b, full_k + 8 * st);
+        mbar_expect_tx(full_v + 8 * st, C::kKVBytes);
+        for (int p = 0; p < C::kParts; ++p)
+          tma_load(sv + st * C::kKVBytes + p * C::kPartKV, &tv, p * C::kCols,
+                   k0, kh, b, full_v + 8 * st);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    consume<D>(sq, sk, sv, bar, threadIdx.x / 128 - 1,
+               out + b * os.b + h * os.h, os.s, Sq, Sk, q0, k_lo, n_tiles,
+               causal, window, scale);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the 4-d map (d, s, head, batch) of a bf16 tensor, boxes of cols x rows
+bool make_map(CUtensorMap* map, const void* ptr, int D, int cols, int S,
+              int heads, int B, Strides st, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                D < 64 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kErrTensorMap = -1;
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int KH, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+           Strides os, int causal, int window, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, D, C::kCols, Sq, H, B, qs, kBM) ||
+      !make_map(&mk, k, D, C::kCols, Sk, KH, B, ks, C::kBN) ||
+      !make_map(&mv, v, D, C::kCols, Sk, KH, B, vs, C::kBN))
+    return kErrTensorMap;
+  auto kernel = flash_attention_tc_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(H, B, (Sq + kBM - 1) / kBM);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), os, H, KH, Sq, Sk, causal,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+bool bad_shape(int B, int H, int KH, int Sk, int window) {
+  return KH <= 0 || H % KH != 0 || Sk <= 0 || window < 0 || H > 65535 ||
+         B > 65535;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on ``stream``; returns cudaGetLastError() after the launch (0 on
-// success).  dtype: 0 f32, 1 bf16 (q, k, v and out alike).  D is 16, 64 or
-// 128.  Strides are in elements, in the order (b, h, s) for each of q, k,
-// v and out; d is contiguous.  All pointers are device pointers.
-int flash_attention_launch(int dtype, int D, const void* q, const void* k,
-                           const void* v, void* out, int B, int H, int KH,
-                           int Sq, int Sk, long long qsb, long long qsh,
-                           long long qss, long long ksb, long long ksh,
-                           long long kss, long long vsb, long long vsh,
-                           long long vss, long long osb, long long osh,
-                           long long oss, int causal, int window, float scale,
-                           void* stream) {
+// Both entry points launch on ``stream`` and return 0 on success, else a
+// CUDA error code (cudaGetLastError() after the launch) or -1 when the
+// tensor maps cannot be built.  D is 16, 64 or 128.  Strides are in
+// elements, in the order (b, h, s) for each of q, k, v and out; d is
+// contiguous.  All pointers are device pointers.
+
+// f32 q, k, v and out: the CUDA-core kernel.
+int flash_attention_f32_launch(int D, const void* q, const void* k,
+                               const void* v, void* out, int B, int H,
+                               int KH, int Sq, int Sk, long long qsb,
+                               long long qsh, long long qss, long long ksb,
+                               long long ksh, long long kss, long long vsb,
+                               long long vsh, long long vss, long long osb,
+                               long long osh, long long oss, int causal,
+                               int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
-  if (KH <= 0 || H % KH != 0 || Sk <= 0 || window < 0 || H > 65535 ||
-      B > 65535)
+  if (bad_shape(B, H, KH, Sk, window)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
+      os{osb, osh, oss};
+#define ARGS q, k, v, out, B, H, KH, Sq, Sk, qs, ks, vs, os, causal, window, \
+             scale, s
+  switch (D) {
+    case 16: return (int)launch_f32<16>(ARGS);
+    case 64: return (int)launch_f32<64>(ARGS);
+    case 128: return (int)launch_f32<128>(ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 q, k, v and out: the tensor-core kernel.  q, k and v are read by
+// TMA: 16-byte aligned bases, strides that are multiples of 16 bytes
+// (the wrapper checks both); out is written in bf16 pairs.
+int flash_attention_tc_launch(int D, const void* q, const void* k,
+                              const void* v, void* out, int B, int H, int KH,
+                              int Sq, int Sk, long long qsb, long long qsh,
+                              long long qss, long long ksb, long long ksh,
+                              long long kss, long long vsb, long long vsh,
+                              long long vss, long long osb, long long osh,
+                              long long oss, int causal, int window,
+                              float scale, void* stream) {
+  if (B <= 0 || Sq <= 0) return 0;
+  if (bad_shape(B, H, KH, Sk, window) || (Sq + tc::kBM - 1) / tc::kBM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
-  if (dtype == kF32)
-    return (int)launch_d<float>(D, q, k, v, out, B, H, KH, Sq, Sk, qs, ks,
-                                vs, os, causal, window, scale, s);
-  if (dtype == kBF16)
-    return (int)launch_d<__nv_bfloat16>(D, q, k, v, out, B, H, KH, Sq, Sk,
-                                        qs, ks, vs, os, causal, window,
-                                        scale, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return tc::launch<16>(ARGS);
+    case 64: return tc::launch<64>(ARGS);
+    case 128: return tc::launch<128>(ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ARGS
+}
+
+// Dynamic shared memory of one block, in bytes: the tensor-core kernel
+// (tc != 0) or the f32 one, at head dim D; 0 for a D without an instance.
+int flash_attention_smem(int tc, int D) {
+  switch (D) {
+    case 16: return tc ? tc::Cfg<16>::kSmem : (int)smem_bytes(16);
+    case 64: return tc ? tc::Cfg<64>::kSmem : (int)smem_bytes(64);
+    case 128: return tc ? tc::Cfg<128>::kSmem : (int)smem_bytes(128);
+    default: return 0;
+  }
 }
 
 const char* flash_attention_error_string(int code) {
+  if (code == tc::kErrTensorMap)
+    return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

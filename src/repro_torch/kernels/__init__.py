@@ -4,5 +4,6 @@ paged_attention — one-token GQA decode over the paged KV pool (CUDA C++,
                   ``repro_torch/csrc/paged_attention.cu``)
 flash_attention — blockwise GQA prefill attention, causal / windowed /
                   bidirectional (CUDA C++,
-                  ``repro_torch/csrc/flash_attention.cu``)
+                  ``repro_torch/csrc/flash_attention.cu``: bf16 on the
+                  tensor cores, wgmma fed by TMA; f32 on the CUDA cores)
 """

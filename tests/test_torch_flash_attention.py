@@ -191,16 +191,17 @@ def test_wrapper_rule_cpu_plain_version_and_device_checks():
 def test_cuda_kernel_matches_plain_version(dt):
     """On the card: the kernel against its plain version (f32 <= 1e-5;
     bf16 within one output ulp, 2**-7 x max|plain|), and it counts its
-    launch."""
+    launch (bf16 launches as tensor-core launches too)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     rng = np.random.RandomState(4)
     q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32))
                .to("cuda", TDT[dt])
                for s in ((2, 15, 300, 64), (2, 5, 300, 64), (2, 5, 300, 64)))
-    before = k2.launches
+    before, tc_before = k2.launches, k2.tc_launches
     out = flash_attention(q, k, v, causal=True, window=100)
     assert k2.launches == before + 1
+    assert k2.tc_launches == tc_before + (dt == "bf16")
     ref = flash_attention_ref(q, k, v, causal=True, window=100)
     err = (out.float() - ref.float()).abs().max().item()
     limit = 1e-5 if dt == "f32" else 2 ** -7 * ref.float().abs().max().item()
