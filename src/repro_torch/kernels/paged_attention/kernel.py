@@ -1,19 +1,24 @@
-"""Paged decode attention: wrapper of the hand-written CUDA kernel.
+"""Paged decode attention: wrapper of the hand-written CUDA kernels.
 
-The kernel, ``repro_torch/csrc/paged_attention.cu``, replaces the Pallas TPU
+The source, ``repro_torch/csrc/paged_attention.cu``, replaces the Pallas TPU
 kernel ``repro/kernels/paged_attention/kernel.py::paged_attention``.  It is
-bound by bytes on the card: the live K/V pages of every sequence are read
-once, by one block per (sequence, kv head) that serves all G query heads of
-its kv head from one shared-memory tile, and dead pages are never read (the
-source's header note says more).
+bound by bytes on the card, and is a split-K (flash-decoding) design: the
+grid is (sequence x kv head, split), each split reads its contiguous range
+of live table entries through a ring of cp.async stages with 16-byte loads,
+and with more than one split a second, small kernel merges the splits'
+partial softmax states (the source's header note says more).  The number of
+splits comes from shapes alone (``num_splits``), so a call reads no device
+value on the host and can be captured in a CUDA graph.
 
-The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
+The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/`` at the repository root, as a shared library with a
 plain C entry point that ``ctypes`` loads.
 
 ``paged_attention`` takes its plain version (``ref.paged_attention_ref``)
 only when every tensor it is given lies on the CPU.  For CUDA tensors it
-launches the kernel or raises; ``launches`` counts the launches.
+launches the kernel or raises; ``launches`` counts the calls that launched
+it, ``split_launches`` those that ran more than one split and the combine
+kernel.
 """
 from __future__ import annotations
 
@@ -27,8 +32,20 @@ import torch
 from .._nvcc import CSRC, build_library
 from .ref import paged_attention_ref
 
-# kernel launches made by ``paged_attention`` (CPU calls do not count)
+# calls of ``paged_attention`` that launched the kernel (CPU calls and empty
+# batches do not count), and those of them that ran more than one split and
+# the combine kernel
 launches = 0
+split_launches = 0
+
+HEAD_DIMS = (16, 64, 128, 256)   # head dims the kernel takes
+MAX_GROUP = 16                   # query heads per kv head, at most
+# split choice: at most this many blocks on each SM (one wave: every
+# instance keeps 4 blocks of 128 threads resident on an SM), and no split
+# shorter than this many tokens of table capacity
+BLOCKS_PER_SM = 4
+MIN_SPLIT_TOKENS = 128
+MAX_SPLITS = 65535               # the grid's y dimension
 
 _SRC = CSRC / "paged_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -52,14 +69,77 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.paged_attention_launch
-            fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                           + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                           + [ctypes.c_int] * 7
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            lib.paged_attention_smem.argtypes = [ctypes.c_int] * 2
+            lib.paged_attention_smem.restype = ctypes.c_int
             lib.paged_attention_error_string.argtypes = [ctypes.c_int]
             lib.paged_attention_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def smem_bytes(kv_dtype: torch.dtype, D: int) -> int:
+    """Dynamic shared memory of one block of the split kernel for pages of
+    ``kv_dtype`` at head dim D, as the library launches it."""
+    return _load().paged_attention_smem(_DTYPE_CODES[kv_dtype], D)
+
+
+def num_splits(B: int, KH: int, NP: int, page: int, sms: int) -> int:
+    """How many splits of each sequence's table the kernel runs, from shapes
+    alone (never the lengths, so the call needs no host sync).
+
+    As many (sequence x kv head x split) blocks as fit on the card at once
+    (``BLOCKS_PER_SM`` on each of ``sms`` SMs: one wave, so no block waits
+    for a second), but no split shorter than ``MIN_SPLIT_TOKENS`` tokens of
+    table capacity and no more splits than table entries: 1 for short
+    tables (the serving decode's NP = 4 at page 16) or a batch that fills
+    the card by itself, many for one long sequence."""
+    if B * KH <= 0 or NP <= 0:
+        return 1
+    want = BLOCKS_PER_SM * sms // (B * KH)
+    most = NP * page // MIN_SPLIT_TOKENS
+    return max(1, min(want, most, NP, MAX_SPLITS))
+
+
+_num_splits = num_splits     # the wrapper's keyword of that name shadows it
+
+
+def split_bounds(NP: int, splits: int):
+    """The table entries [lo, hi) of each split, as the kernel computes
+    them: split s owns [s*NP // splits, (s+1)*NP // splits)."""
+    return [(s * NP // splits, (s + 1) * NP // splits)
+            for s in range(splits)]
+
+
+def check_launch(D: int, G: int, itemsize: int, data_ptrs) -> None:
+    """What the kernel takes, on plain numbers: D one of ``HEAD_DIMS``, G
+    query heads per kv head from 1 to ``MAX_GROUP``, a token's D values a
+    whole number of 16-byte words, and 16-byte aligned page pools (their
+    ``data_ptrs``).  Anything else raises ``ValueError``; the kernel has no
+    other route."""
+    if D * itemsize % 16:
+        raise ValueError(f"paged_attention reads pages in 16-byte words: "
+                         f"D x element size = {D} x {itemsize} bytes is not "
+                         f"a multiple of 16")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"paged_attention takes head_dim in {HEAD_DIMS}, "
+                         f"got {D}")
+    if not 1 <= G <= MAX_GROUP:
+        raise ValueError(f"paged_attention takes 1 to {MAX_GROUP} query "
+                         f"heads per kv head, got {G}")
+    for ptr in data_ptrs:
+        if ptr % 16:
+            raise ValueError(f"paged_attention reads pages in 16-byte "
+                             f"words, which needs a 16-byte aligned base; "
+                             f"got address {ptr:#x}")
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, the one device property ``num_splits`` reads."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales):
@@ -109,14 +189,17 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor, *,
                     k_scales: Optional[torch.Tensor] = None,
-                    v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    v_scales: Optional[torch.Tensor] = None,
+                    num_splits: Optional[int] = None) -> torch.Tensor:
     """q: (B,H,D) f32|bf16; k/v_pages: (P,page,KH,D) in q's dtype, or int8
     with ``k_scales``/``v_scales`` (P,KH) f32; block_tables: (B,NP) int32;
     lengths: (B,) int32 -> (B,H,D) in q's dtype.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
-    global launches
+    the current stream or raise.  ``num_splits`` forces the number of
+    splits (1 to NP) where ``num_splits()`` would choose it; the result is
+    the same function (it changes the order of the fp32 sums)."""
+    global launches, split_launches
     given = [t for t in (q, k_pages, v_pages, block_tables, lengths,
                          k_scales, v_scales) if t is not None]
     if all(t.device.type == "cpu" for t in given):
@@ -129,8 +212,22 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     B, H, D = q.shape
     P, page, KH, _ = k_pages.shape
     NP = block_tables.shape[1]
-    lib = _load()
+    G = H // KH
+    check_launch(D, G, k_pages.element_size(),
+                 (k_pages.data_ptr(), v_pages.data_ptr()))
     out = torch.empty_like(q)
+    if B == 0:
+        return out
+    if num_splits is None:
+        splits = _num_splits(B, KH, NP, page, sm_count(q.device))
+    elif not 1 <= num_splits <= min(NP, MAX_SPLITS):
+        raise ValueError(f"num_splits must be 1 to {min(NP, MAX_SPLITS)} "
+                         f"(the table's {NP} entries), got {num_splits}")
+    else:
+        splits = int(num_splits)
+    lib = _load()
+    ws = (torch.empty(B * KH * splits * G * (D + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
     quant = k_scales is not None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -140,10 +237,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             k_scales.data_ptr() if quant else None,
             v_scales.data_ptr() if quant else None,
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, KH, D, page, NP, 1.0 / math.sqrt(D), stream)
+            None if ws is None else ws.data_ptr(),
+            B, H, KH, D, page, NP, splits, 1.0 / math.sqrt(D), stream)
     if rc != 0:
         msg = lib.paged_attention_error_string(rc).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc} ({msg})")
     launches += 1
+    split_launches += splits > 1
     return out
