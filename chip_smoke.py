@@ -48,13 +48,28 @@ Phases (any failure raises and the script exits non-zero):
                 tensor-core kernel, K1 none).  Every request done, every
                 pool or slot released, >= 2 nodes per request; tokens/s
                 printed.
-  6. engines  — ``Engine`` (K2 launches == 32 x prefills, all through the
+  6. speculative serving — the paged cluster of phase 5 (same plan,
+                prompts, 16 new tokens, max_len 64) with a draft model at
+                the coordinator, γ = 4: (a) ``--draft smollm_360m``, the
+                target's own weights (a perfect draft: spec_accepted > 0,
+                tokens per round trip > 1); (b) a bad draft, the same
+                config cut to 4 layers with weights from another seed
+                (spec_rejected > 0: the rollback runs on the card).  Both:
+                greedy tokens equal to phase 5's, pools and draft slots
+                drained, K1 launches == decode passes (verify sub-steps
+                included) x paged layers with none split, K2 launches ==
+                the draft's prefills x its layers, all through the
+                tensor-core kernel.  Prints the spec counters, tokens/s on
+                the host clock and the mean decode latency on the virtual
+                clock (links modelled at 1 ms and 10 Gb/s, the serving
+                cluster's, beside a non-speculative run on the same links).
+  7. engines  — ``Engine`` (K2 launches == 32 x prefills, all through the
                 tensor-core kernel) and ``PagedEngine`` (``--paged``; K1
                 launches == 32 x decode steps; its split launches printed)
                 at full width.
-  7. profile  — both cluster runs again under ``torch.profiler``: device
+  8. profile  — both cluster runs again under ``torch.profiler``: device
                 busy time against the unprofiled wall time, top kernels.
-  8. timings  — CUDA events around each call (the host's launch
+  9. timings  — CUDA events around each call (the host's launch
                 included): K1 at the serving decode shape, at B=32, L=2048
                 on bf16 and on int8 pages and at B=1, L=32768, in turns
                 with its plain version and ``scaled_dot_product_attention``
@@ -67,12 +82,15 @@ Phases (any failure raises and the script exits non-zero):
                 same function), then both again as 20 calls in a CUDA
                 graph (no host launch in the time), with TFLOP/s and the
                 share of its bound.  The port never calls SDPA.
-  9. cross-checks, f32 — the paged cluster at full depth on cuda and on
+  10. cross-checks, f32 — the paged cluster at full depth on cuda and on
                 the CPU (plain versions), same weights: first-prefill and
                 first-decode logits allclose at atol=rtol=1e-3, tokens
                 equal; then at full width and 4 layers, the dense cluster,
-                paged cluster, ``Engine`` and ``PagedEngine`` on cuda and
-                the dense cluster on the CPU: equal greedy tokens, dense
+                paged cluster, ``Engine`` and ``PagedEngine`` on cuda, the
+                dense cluster on the CPU, and the paged and dense clusters
+                speculating with a bad draft (another seed's weights) on
+                cuda (and the paged one with a perfect draft, whose
+                acceptance in f32 is printed): equal greedy tokens, dense
                 first-prefill logits cuda vs cpu within 1e-3.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
@@ -106,6 +124,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init  # noqa: E402
 from repro_torch.models.common import map_tree  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
+from repro_torch.serving.runtime import InProcessTransport  # noqa: E402
 from repro_torch.serving.stage_engine import (  # noqa: E402
     PagedStageEngine, StageEngine, _StageEngineBase)
 
@@ -135,6 +154,16 @@ XCHECK_ARGV = ["--arch", "smollm_360m", "--cluster", "A100,L4", "--stages",
 DENSE_ARGV = ["--arch", "smollm_360m", "--cluster", "A100,L4", "--stages",
               "2", "--dense", "--batch", "4", "--prompt", "37,128,300,511",
               "--new-tokens", "16", "--max-len", "576"]
+# the speculative phase: the paged serving phase's argv, γ = 4; the bad
+# draft is the target's config cut to BAD_DRAFT_LAYERS layers, with weights
+# from the seed + BAD_DRAFT_SEED
+SPEC_ARGV = SERVE_ARGV + ["--spec-tokens", "4"]
+BAD_DRAFT_LAYERS = 4
+BAD_DRAFT_SEED = 7
+# links of the speculative phase's virtual clock: make_serving_cluster's
+# 1 ms and 10 Gb/s
+LINK_DELAY_S = 1e-3
+LINK_BYTES_PER_S = 10e9 / 8
 # the engines phase: Engine (dense) and PagedEngine (--paged), one node
 ENGINES_ARGV = ["--arch", "smollm_360m", "--batch", "4", "--prompt",
                 "37,128,300,511", "--new-tokens", "8", "--max-len", "576"]
@@ -782,7 +811,105 @@ def serving_phase(cfg, params):
           f"none split (split_launches 0); flash_attention launches: 0; "
           f"pools drained {used}")
     pool_pages = max(e.pool.num_pages for e in rt.engines.values())
-    return (launches, split_launches), toks / dt, pool_pages, dt
+    return ((launches, split_launches), toks / dt, pool_pages, dt,
+            [r.output for r in reqs])
+
+
+def bad_draft(cfg, seed):
+    """A low-acceptance draft: ``cfg`` cut to ``BAD_DRAFT_LAYERS`` layers at
+    full width, with weights from another seed."""
+    dcfg = dataclasses.replace(cfg, repeats=BAD_DRAFT_LAYERS)
+    return dcfg, init(dcfg, seed + BAD_DRAFT_SEED, device=DEVICE)
+
+
+def link_model():
+    return InProcessTransport(default_delay_s=LINK_DELAY_S,
+                              bandwidth_bytes_per_s=LINK_BYTES_PER_S)
+
+
+def check_spec_run(rt, reqs, ref_tokens, name):
+    """One speculative cluster run: tokens equal to the non-speculative
+    paged phase's, pools and draft slots drained, K1 launches == decode
+    passes x paged layers (none split) and K2 launches == the draft's
+    prefills x its layers (all tensor-core).  Returns the launch counts."""
+    got = [r.output for r in reqs]
+    require(got == ref_tokens, f"{name}: speculative tokens {got} differ "
+                               f"from the non-speculative run's {ref_tokens}")
+    used = rt.pool_pages_used()
+    require(all(u == 0 for u in used.values()), f"{name}: pages leaked {used}")
+    require(rt.draft.free_slots == len(rt.draft.slots) and
+            rt.draft.kv_tokens_used() == 0,
+            f"{name}: draft slots not released")
+    expected = sum(e.decode_steps * e.n_paged for e in rt.engines.values())
+    require(k1.launches == expected > 0 and k1.split_launches == 0,
+            f"{name}: {k1.launches} paged_attention launches "
+            f"({k1.split_launches} split), expected {expected} (none split)")
+    dl = rt.draft.layers.num_layers
+    require(k2.launches == rt.draft.prefills * dl > 0 and
+            k2.tc_launches == k2.launches and
+            rt.draft.prefills >= len(reqs),
+            f"{name}: {k2.launches} flash_attention launches "
+            f"({k2.tc_launches} tensor-core) for {rt.draft.prefills} draft "
+            f"prefills x {dl} layers")
+    return dict(k1=k1.launches, k1_split=k1.split_launches, k2=k2.launches,
+                k2_tc=k2.tc_launches)
+
+
+def spec_serving_phase(cfg, params, ref_tokens, card):
+    """The paged cluster speculating with (a) a perfect draft (``--draft
+    smollm_360m``: the target's own weights) and (b) a bad one, γ = 4, on
+    modelled links; beside a non-speculative run on the same links for the
+    virtual-clock decode latency."""
+    args = serve.parse_args(SPEC_ARGV + ["--device", DEVICE])
+    bad = bad_draft(cfg, args.seed)
+    serve.run_cluster(cfg, serve.parse_args(
+        SPEC_ARGV + ["--device", DEVICE, "--new-tokens", "3"]), params,
+        draft=bad, verbose=False)                            # warm-up
+    rt0, reqs0, _, _ = serve.run_cluster(cfg, args, params,
+                                         transport=link_model(),
+                                         verbose=False)
+    require([r.output for r in reqs0] == ref_tokens,
+            "non-speculative tokens on modelled links differ from phase 5's")
+    base_lat = rt0.mean_decode_latency()
+    print(f"  non-speculative on the same links: mean decode latency "
+          f"{1e3 * base_lat:.4f} ms/token (virtual clock)")
+    out = {}
+    for name, argv, draft in (
+            ("perfect", ["--draft", "smollm_360m"], None),
+            ("bad", [], bad)):
+        run_args = serve.parse_args(SPEC_ARGV + argv + ["--device", DEVICE])
+        zero_counts()
+        rt, reqs, _, dt = serve.run_cluster(cfg, run_args, params,
+                                            draft=draft,
+                                            transport=link_model(),
+                                            verbose=False)
+        counts = check_spec_run(rt, reqs, ref_tokens, name)
+        if name == "perfect":
+            require(rt.spec_accepted > 0 and
+                    rt.spec_tokens_per_round_trip > 1,
+                    f"perfect draft: {rt._spec_note()}")
+        else:
+            require(rt.spec_rejected > 0, f"bad draft: {rt._spec_note()}")
+        toks = sum(len(r.output) for r in reqs)
+        lat = rt.mean_decode_latency()
+        print(f"  ({name}) draft {rt.draft_cfg.name} "
+              f"{rt.draft_cfg.num_layers}L, gamma {rt.spec_tokens}: "
+              f"{rt._spec_note()} rounds={rt.spec_rounds} "
+              f"cancelled_inflight={rt.cancelled_inflight}")
+        print(f"  ({name}) {len(reqs)} requests, {toks} tokens in {dt:.4f} s "
+              f"= {toks / dt:.2f} tokens/s on {card} (host clock); mean "
+              f"decode latency {1e3 * lat:.4f} ms/token (virtual clock: "
+              f"modelled links, not compute) against {1e3 * base_lat:.4f} "
+              "non-speculative")
+        print(f"  ({name}) paged_attention launches {counts['k1']} = decode "
+              f"passes {({n: e.decode_steps for n, e in rt.engines.items()})}"
+              f" x paged layers, none split; flash_attention launches "
+              f"{counts['k2']} = {rt.draft.prefills} draft prefills x "
+              f"{rt.draft.layers.num_layers} layers, all tensor-core; tokens "
+              "equal to phase 5's; pools and draft slots drained")
+        out[name] = dict(counts, tokens_per_s=toks / dt, latency_s=lat,
+                         spec=rt._spec_note())
+    return out
 
 
 def dense_serving_phase(cfg, params, card):
@@ -984,9 +1111,11 @@ def cross_check(cfg32, params32):
 
 def dense_cross_check(cfg32, params32):
     """Full width at 4 layers, f32: on the card the dense cluster, the
-    paged cluster, ``Engine`` and ``PagedEngine`` give the same greedy
-    tokens; the dense cluster's first-prefill logits on the card are
-    within 1e-3 of the port's CPU run."""
+    paged cluster, ``Engine``, ``PagedEngine``, the paged and dense
+    clusters speculating with a bad draft and the paged one with a perfect
+    draft (its own weights) give the same greedy tokens; the
+    dense cluster's first-prefill logits on the card are within 1e-3 of
+    the port's CPU run."""
     cfg4 = dataclasses.replace(cfg32, repeats=DENSE_XCHECK_LAYERS)
     params4 = dict(params32, super=map_tree(
         lambda t: t[:DENSE_XCHECK_LAYERS], params32["super"]))
@@ -1003,6 +1132,21 @@ def dense_cross_check(cfg32, params32):
                                                  DEVICE])
     _, reqs, _ = serve.run_paged(cfg4, args, params4, verbose=False)
     tokens["PagedEngine cuda"] = [r.output for r in reqs]
+    bad = bad_draft(cfg4, args.seed)
+    for mode, name, draft in (("paged", "bad", bad), ("dense", "bad", bad),
+                              ("paged", "perfect", (cfg4, params4))):
+        sargs = serve.parse_args(DENSE_XCHECK_ARGV + ["--device", DEVICE]
+                                 + (["--dense"] if mode == "dense" else []))
+        rt, reqs, _, _ = serve.run_cluster(cfg4, sargs, params4, draft=draft,
+                                           verbose=False)
+        require((rt.spec_rejected if name == "bad" else rt.spec_accepted) > 0
+                and all(u == 0 for u in rt.pool_pages_used().values()) and
+                rt.draft.free_slots == len(rt.draft.slots),
+                f"{mode} speculative run: {rt._spec_note()}, pools "
+                f"{rt.pool_pages_used()}, draft slots free "
+                f"{rt.draft.free_slots}")
+        tokens[f"{mode} cluster cuda, {name} draft"] = [r.output for r in reqs]
+        print(f"  {mode} cluster, {name} draft: {rt._spec_note()}")
     for name, toks in tokens.items():
         print(f"  {name}: {toks}")
     require(all(t == g_tok for t in tokens.values()),
@@ -1129,7 +1273,11 @@ def main() -> int:
     params = init(cfg, args.seed, device=DEVICE)
 
     phase("serving: paged cluster")
-    k1_launches, tok_s, pool_pages, paged_s = serving_phase(cfg, params)
+    k1_launches, tok_s, pool_pages, paged_s, paged_tokens = serving_phase(
+        cfg, params)
+
+    phase("serving: speculative paged cluster")
+    spec = spec_serving_phase(cfg, params, paged_tokens, card)
 
     phase("serving: dense cluster")
     k2_launches, dense_tok_s, dense_s = dense_serving_phase(cfg, params,
@@ -1174,6 +1322,8 @@ def main() -> int:
          "launches": k1_launches[0], "split_launches": k1_launches[1],
          "engine_launches": engine_k1[0],
          "engine_split_launches": engine_k1[1],
+         "spec_launches": {k: v["k1"] for k, v in spec.items()},
+         "spec_split_launches": {k: v["k1_split"] for k, v in spec.items()},
          "max_abs_err": k1_err, "worst_err_over_limit": k1_worst,
          "ms": main1["ms"], "plain_ms": main1["plain_ms"],
          "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
@@ -1188,6 +1338,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
          "launches": k2_launches[0], "tc_launches": k2_launches[1],
          "engine_launches": engine_k2[0], "engine_tc_launches": engine_k2[1],
+         "spec_launches": {k: v["k2"] for k, v in spec.items()},
+         "spec_tc_launches": {k: v["k2_tc"] for k, v in spec.items()},
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],

@@ -17,13 +17,22 @@ Single-node paged-KV serving (``PagedEngine``, a full-rectangle pool):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --paged --batch 4 --prompt 40 --new-tokens 8
 
+Greedy speculative decoding over the cluster: ``--draft ARCH`` puts a
+draft model at the coordinator (the registry's config of that arch, at the
+target's width: SMOKE with ``--smoke``; weights from ``--seed``, so
+``--draft`` naming the target's own arch is a perfect draft) proposing
+``--spec-tokens`` tokens per verify round:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
+      --cluster A100,L4 --stages 2 --prompt 40 --new-tokens 16 \
+      --draft smollm_360m --spec-tokens 4
+
 CPU smoke runs (small config, plain versions of the kernels): add
 ``--smoke --device cpu``.  ``--prompt`` takes one length or a
 comma-separated list that the requests cycle through.
 
 Not ported yet: the sharded mesh path (ROADMAP queue 1 item 8; without
-``--cluster`` or ``--paged`` the driver raises), int8 KV, socket workers,
-speculative decoding and the HTTP front door.
+``--cluster`` or ``--paged`` this module raises), int8 KV, socket workers
+and the HTTP front door.
 """
 from __future__ import annotations
 
@@ -42,8 +51,11 @@ from repro_torch.serving.engine import EngineConfig, PagedEngine, Request
 from repro_torch.serving.runtime import ClusterRuntime
 
 
-def build_config(args):
-    return get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+def build_config(args, arch: Optional[str] = None):
+    """The registry's config of ``arch`` (default ``--arch``): SMOKE with
+    ``--smoke``, else the full one."""
+    arch = arch or args.arch
+    return get_smoke_config(arch) if args.smoke else get_config(arch)
 
 
 def make_plan(cfg, args):
@@ -89,9 +101,13 @@ def _report(reqs, dt, dev, what):
     print("sampled ids:", [r.output for r in reqs[:2]])
 
 
-def run_cluster(cfg, args, params=None, *, verbose: bool = True):
+def run_cluster(cfg, args, params=None, *, draft=None, transport=None,
+                verbose: bool = True):
     """Serve ``--batch`` random prompts through the cluster runtime (paged
-    stage engines, or dense ones with ``--dense``).  Returns (runtime,
+    stage engines, or dense ones with ``--dense``), speculatively when
+    ``draft`` names a ``(draft_cfg, draft_params)`` pair or ``--draft`` an
+    arch; ``transport`` (an ``InProcessTransport``) models the links on the
+    runtime's virtual clock (default: no delay).  Returns (runtime,
     requests, plan, seconds)."""
     dev = resolve_device(args.device)
     p = make_plan(cfg, args)
@@ -100,11 +116,23 @@ def run_cluster(cfg, args, params=None, *, verbose: bool = True):
             print(f"  {node}: layers [{rng_.start}, {rng_.end})")
     if params is None:
         params = init(cfg, args.seed, device=dev)
+    if draft is None and args.draft:
+        dcfg = build_config(args, args.draft)
+        draft = (dcfg, init(dcfg, args.seed, device=dev))
+    spec_kw = {}
+    if draft is not None:
+        if verbose:
+            print(f"draft: {draft[0].name} ({draft[0].num_layers}L "
+                  f"d={draft[0].d_model} {draft[0].param_dtype}), "
+                  f"spec_tokens={args.spec_tokens}")
+        spec_kw = dict(draft_cfg=draft[0], draft_params=draft[1],
+                       spec_tokens=args.spec_tokens)
     ec = EngineConfig(max_batch=args.batch, max_len=args.max_len,
                       prompt_len=min(16, args.max_len))
     rt = ClusterRuntime(cfg, params, p, ec, paged=not args.dense,
                         page_size=args.page_size,
-                        max_inflight=args.max_inflight, device=dev)
+                        max_inflight=args.max_inflight, device=dev,
+                        transport=transport, **spec_kw)
     reqs = make_requests(cfg, args)
 
     def run():
@@ -118,6 +146,11 @@ def run_cluster(cfg, args, params=None, *, verbose: bool = True):
             print(f"req{r.request_id} -> "
                   + " -> ".join(s.node for s in rt.served[r.request_id].stages))
         _report(reqs, dt, dev, "cluster" + (" (dense)" if args.dense else ""))
+        if rt.draft is not None:
+            print(f"  {rt._spec_note()}")
+        print(f"  mean decode latency (virtual clock: modelled link delays, "
+              f"not compute): {1e3 * rt.mean_decode_latency():.3f} ms/token; "
+              f"cancelled in-flight passes: {rt.cancelled_inflight}")
     return rt, reqs, p, dt
 
 
@@ -174,6 +207,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max-inflight", type=int, default=1,
                     help="with --cluster: per-request in-flight decode "
                          "window")
+    ap.add_argument("--draft", default="",
+                    help="with --cluster: arch of a coordinator-side draft "
+                         "model for greedy speculative decoding (must "
+                         "share the target's vocab)")
+    ap.add_argument("--spec-tokens", type=int, default=4,
+                    help="with --draft: draft tokens proposed per verify "
+                         "round trip (gamma)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
     return ap.parse_args(argv)
@@ -182,7 +222,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def _not_drained(rt) -> dict:
     """Nodes still holding pages (paged) or slots (dense)."""
     out = {n: u for n, u in rt.pool_pages_used().items() if u}
-    for n, e in rt.engines.items():
+    engines = dict(rt.engines)
+    if rt.draft is not None:
+        engines["draft"] = rt.draft
+    for n, e in engines.items():
         if e.free_slots != len(e.slots) or e.kv_tokens_used():
             out[n] = f"{len(e.slots) - e.free_slots} slots"
     return out

@@ -29,6 +29,27 @@ epoch, which every delivery checks.  Launching reserves KV for the new
 position on every stage node up front.  ``max_inflight=1`` is the classic
 one-outstanding-token walk.
 
+Speculative decoding (``draft_cfg`` / ``draft_params`` / ``spec_tokens``):
+a draft model sharing the target's vocab lives at the coordinator (a dense
+full-model ``StageEngine``).  Each round the draft proposes γ tokens; the
+target verifies all γ+1 positions in one pass through the decode pipeline
+(the stage engines run it as position-ordered sub-batches), the final stage
+returns the greedy argmax vector, and the coordinator accepts the longest
+matching draft prefix, confirms it in order (plus the bonus token), and on
+the first mismatch bumps the job epoch and rolls every stage node back to
+the accepted prefix.  Greedy speculative output equals non-speculative
+greedy output for any draft.  Speculation needs ``temperature <= 0``; a
+request that finds the draft's slots full serves non-speculatively.  A spec
+job keeps one verify pass in flight and launches only from the coordinator.
+
+Telemetry: ``tokens_produced``, ``completed``, ``cancelled_inflight``
+(in-flight passes an early stop or a rejected verify cancelled), the spec
+counters, and ``mean_decode_latency`` — the mean per-token decode latency
+on the virtual clock, which advances only by the transport's modelled link
+delays (``InProcessTransport``: per-link latency plus bytes over
+bandwidth, and two hops per stage-to-stage send in the star topology), not
+by compute.
+
 Memory: admission takes a slot and the prompt's pages on every stage node
 up front (a dense engine's rectangle is reserved at construction);
 completion and preemption release KV on every node of the pipeline.  When
@@ -40,11 +61,13 @@ is written into the scheduler's ``KVEstimator`` (``_sync_kv``), and real
 pool capacities are installed at startup.
 
 Not ported yet (the arguments raise; ROADMAP queue 1): int8 KV pools
-(item 1), speculative decoding (item 3), disaggregated prefill/decode
-(item 4), cancel, failover and ``apply_plan`` (item 5), the wall-clock
-(realtime) loop, socket transports and workers (item 6), and models that
-are not all-paged (item 7).  The in-process transport never reorders a
-delivery, so the reference's chunk reordering guard is not carried.
+(item 1), disaggregated prefill/decode (item 4), cancel, failover and
+``apply_plan`` (item 5), the wall-clock (realtime) loop, socket transports
+and workers (item 6), and models that are not all-paged (item 7).  Nor are
+the reference's guards against a transport that delivers a payload twice,
+but for the dense prefill's (item 6): the in-process transport delivers
+each payload once (it may reorder them: prefill chunks then wait for their
+predecessors, decode tokens in the coordinator's inbox).
 """
 from __future__ import annotations
 
@@ -68,29 +91,67 @@ from .stage_engine import DecodeItem, PagedStageEngine, StageEngine
 
 class InProcessTransport:
     """Same-process transport: payloads are handed over by reference after
-    a modelled link delay, on the runtime's virtual clock (the runtime
-    binds ``schedule(delay_s, fn)`` at construction).  Counts hops and
-    bytes per (src, dst) link."""
+    a modelled link delay (``delay``: the link's latency plus nbytes over
+    the bandwidth), on the runtime's virtual clock (the runtime binds
+    ``schedule(delay_s, fn)`` at construction).
 
-    def __init__(self, default_delay_s: float = 0.0):
+    ``direct_links`` (the default) models routed worker-to-worker links: a
+    stage->stage send costs one (src, dst) hop.  With
+    ``direct_links=False`` it models the coordinator-mediated star: every
+    stage->stage send is charged as two hops, (src, COORDINATOR) then
+    (COORDINATOR, dst), with both link delays paid back to back.  The
+    per-(src, dst) hop and byte counters follow the physical route either
+    way."""
+
+    def __init__(self, default_delay_s: float = 0.0,
+                 link_delay_s: Optional[Mapping[Tuple[str, str],
+                                                float]] = None,
+                 bandwidth_bytes_per_s: float = 0.0, *,
+                 direct_links: bool = True):
         self.default_delay_s = default_delay_s
+        self.link_delay_s = dict(link_delay_s or {})
+        self.bandwidth = bandwidth_bytes_per_s
+        self.direct_links = direct_links
         self.transfers: Dict[Tuple[str, str], int] = defaultdict(int)
         self.bytes_sent: Dict[Tuple[str, str], float] = defaultdict(float)
+        # runtime-maintained one-liners appended to describe() (the
+        # speculation counters)
+        self.annotations: Dict[str, str] = {}
 
     def bind(self, schedule: Callable[[float, Callable[[], None]], None]
              ) -> None:
         self._schedule = schedule
 
-    def send(self, src: str, dst: str, payload: Any, nbytes: float,
-             deliver: Callable[[Any], None]) -> None:
+    def delay(self, src: str, dst: str, nbytes: float) -> float:
+        d = self.link_delay_s.get((src, dst), self.default_delay_s)
+        if self.bandwidth > 0:
+            d += nbytes / self.bandwidth
+        return d
+
+    def _count(self, src: str, dst: str, nbytes: float) -> None:
         self.transfers[(src, dst)] += 1
         self.bytes_sent[(src, dst)] += nbytes
-        self._schedule(self.default_delay_s, lambda: deliver(payload))
+
+    def send(self, src: str, dst: str, payload: Any, nbytes: float,
+             deliver: Callable[[Any], None]) -> None:
+        if self.direct_links or COORDINATOR in (src, dst):
+            self._count(src, dst, nbytes)
+            self._schedule(self.delay(src, dst, nbytes),
+                           lambda: deliver(payload))
+            return
+        # star route: src -> coordinator -> dst
+        self._count(src, COORDINATOR, nbytes)
+        self._count(COORDINATOR, dst, nbytes)
+        d = (self.delay(src, COORDINATOR, nbytes)
+             + self.delay(COORDINATOR, dst, nbytes))
+        self._schedule(d, lambda: deliver(payload))
 
     def describe(self) -> str:
         frags = [f"{s}->{d}={n}/{self.bytes_sent[(s, d)]:.0f}B"
                  for (s, d), n in sorted(self.transfers.items())]
-        return "hops[" + ", ".join(frags) + "]"
+        mode = "direct" if self.direct_links else "star"
+        extra = "".join(f" {v}" for _, v in sorted(self.annotations.items()))
+        return f"hops[{mode}: " + ", ".join(frags) + "]" + extra
 
 
 @dataclasses.dataclass
@@ -110,6 +171,17 @@ class _Job:
                                      # out-of-order sampled tokens by index
     seen: set = dataclasses.field(default_factory=set)
                                      # dedup keys of deliveries already run
+    hop_next: Dict[int, int] = dataclasses.field(default_factory=dict)
+                                     # per-stage next expected chunk offset
+    hop_stash: Dict[int, Dict[int, Any]] = dataclasses.field(
+        default_factory=dict)        # chunks that overtook a predecessor
+    # -- speculative decoding (draft model) -------------------------------
+    draft_slot: Optional[int] = None  # coordinator draft-engine slot
+    draft_pos: int = 0               # next draft row to feed (rows below
+                                     # hold tokens the draft has consumed)
+    spec_drafts: List[int] = dataclasses.field(default_factory=list)
+                                     # γ proposals of the in-flight verify
+    spec_base: int = 0               # cache position of the verify pass
 
     @property
     def resumed(self) -> bool:
@@ -143,14 +215,13 @@ class ClusterRuntime:
                  pool_pages: Optional[Mapping[str, int]] = None,
                  transport: Optional[InProcessTransport] = None,
                  rng_seed: int = 0, max_inflight: int = 1, device="cuda",
-                 engine_factory=None, draft_cfg=None, draft_params=None,
-                 realtime: Optional[bool] = None):
+                 engine_factory=None,
+                 draft_cfg: Optional[ModelConfig] = None, draft_params=None,
+                 spec_tokens: int = 4, realtime: Optional[bool] = None):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if kv_dtype == "int8":
             raise _not_ported("int8 KV serving", 1)
-        if draft_cfg is not None or draft_params is not None:
-            raise _not_ported("speculative decoding", 3)
         if (plan.placement.meta or {}).get("roles"):
             raise _not_ported("disaggregated placements", 4)
         if realtime:
@@ -178,6 +249,34 @@ class ClusterRuntime:
         self.transport = transport or InProcessTransport()
         self.transport.bind(lambda d, fn: self._push(self._now + d, fn))
 
+        # -- speculative decoding: coordinator-side draft model ----------
+        self.spec_tokens = spec_tokens
+        self.draft_cfg = draft_cfg
+        self.draft = None
+        if draft_cfg is not None:
+            if draft_params is None:
+                raise ValueError("draft_cfg given without draft_params")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft {draft_cfg.name} vocab {draft_cfg.vocab_size} "
+                    f"!= target {cfg.name} vocab {cfg.vocab_size}")
+            if spec_tokens < 1:
+                raise ValueError(
+                    f"spec_tokens must be >= 1, got {spec_tokens}")
+            # a full model at the coordinator; dense positional caches make
+            # rejected speculative rows free to overwrite, and sharing
+            # engine_cfg keeps its slot and row budgets the target's
+            self.draft = StageEngine(draft_cfg, draft_params,
+                                     LayerRange(0, draft_cfg.num_layers),
+                                     engine_cfg, rng_seed=rng_seed,
+                                     device=self.device)
+        self.spec_proposed = 0       # draft tokens sent to verification
+        self.spec_accepted = 0       # draft tokens matching target greedy
+        self.spec_rejected = 0       # draft tokens rolled back
+        self.spec_rounds = 0         # verify round trips
+        self.spec_confirmed = 0      # tokens confirmed by verify rounds
+                                     # (accepted prefix + 1 per round)
+
         self.engines: Dict[str, Any] = {}
         for node, rng in sorted(self.placement.assignment.items()):
             self.engines[node] = self._make_engine(node, rng)
@@ -190,8 +289,17 @@ class ClusterRuntime:
         self._eseq = 0
         self._jseq = 0
         self._now = 0.0
+        self.tokens_produced = 0
+        self.completed = 0
+        # in-flight passes cancelled by an early stop (eos/length) or a
+        # rejected verify round
+        self.cancelled_inflight = 0
         # request_id -> the pipeline it was (last) served on
         self.served: Dict[int, Any] = {}
+        # virtual-clock latency: first-token confirm time, and mean
+        # per-token decode latency recorded at completion
+        self._vfirst: Dict[int, float] = {}
+        self.decode_latencies: Dict[int, float] = {}
 
     # -- engine construction ------------------------------------------------
     def _pool_pages(self, node: str, rng: LayerRange) -> int:
@@ -249,6 +357,13 @@ class ClusterRuntime:
             raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds "
                              f"max_len {self.ec.max_len}; refusing to "
                              "truncate")
+        if req.temperature > 0 and self.draft is not None:
+            raise ValueError(
+                f"temperature {req.temperature} > 0 is incompatible with "
+                f"speculative decoding (spec_tokens={self.spec_tokens}): "
+                "verification accepts draft tokens by greedy argmax, so "
+                "sampled acceptance would change the output distribution; "
+                "serve sampled requests on a runtime without a draft model")
         req.submitted_s = self.clock()
         self.queue.append(_Job(req))
 
@@ -359,6 +474,20 @@ class ClusterRuntime:
             job.next_pos = S
             job.inbox = {}
             job.seen = set()
+            job.hop_next = {}
+            job.hop_stash = {}
+            # speculation: take a draft slot and prefill the draft with the
+            # tokens the target sees; greedy only — sampled requests (and
+            # requests that find the draft full) serve non-speculatively
+            job.draft_slot = None
+            job.draft_pos = 0
+            if self.draft is not None and job.req.temperature <= 0:
+                dslot = self.draft.alloc_slot(job.req.request_id)
+                if dslot is not None:
+                    self.draft.prefill_stage(dslot,
+                                             self._prefill_tokens(job), 0)
+                    job.draft_slot = dslot
+                    job.draft_pos = job.pos
             job.seq = self._jseq
             self._jseq += 1
             self.jobs[job.req.request_id] = job
@@ -384,9 +513,12 @@ class ClusterRuntime:
     # -- prefill hops -------------------------------------------------------
     def _hop(self, job: _Job, si: int, off: Optional[int]
              ) -> Callable[[Any], None]:
-        """Delivery of a prefill payload to stage ``si``: the chunk at
-        ``off`` (paged), or the whole prompt (``off=None``, dense), which
-        runs once per stage — a duplicate delivery is dropped."""
+        """Delivery of a prefill payload to stage ``si``: the whole prompt
+        (``off=None``, dense), which runs once per stage — a duplicate
+        delivery is dropped — or the chunk at ``off`` (paged).  Chunks run
+        strictly in offset order per stage: with a bandwidth term a smaller
+        chunk's link delay is shorter, so it can overtake its predecessor,
+        and then waits for it."""
         epoch = job.epoch
 
         def deliver(x):
@@ -396,7 +528,13 @@ class ClusterRuntime:
                 if ("pf", si) in job.seen:
                     return
                 job.seen.add(("pf", si))
-            self._prefill_exec(job, epoch, si, x, off)
+                self._prefill_exec(job, epoch, si, x, None)
+                return
+            stash = job.hop_stash.setdefault(si, {})
+            stash[off] = x
+            while job.epoch == epoch and job.hop_next.get(si, 0) in stash:
+                nxt = job.hop_next.get(si, 0)
+                self._prefill_exec(job, epoch, si, stash.pop(nxt), nxt)
         return deliver
 
     def _prefill_exec(self, job: _Job, epoch: int, si: int, x,
@@ -412,6 +550,7 @@ class ClusterRuntime:
         else:
             n_tok = min(max(1, self.ec.prompt_len), job.pos - off)
             out = eng.prefill_chunk(slot, x, st.layers.start, off)
+            job.hop_next[si] = off + n_tok
         if not last:
             self._send(st.node, stages[si + 1].node, out,
                        self._act_bytes(n_tok), self._hop(job, si + 1, off))
@@ -438,8 +577,10 @@ class ClusterRuntime:
         output and stamp the first-token time."""
         req = job.req
         req.output.append(int(tok))
+        self.tokens_produced += 1
         if req.first_token_s is None:
             req.first_token_s = self.clock()
+        self._vfirst.setdefault(req.request_id, self._now)
 
     def _stop_reason(self, job: _Job) -> Optional[str]:
         req = job.req
@@ -490,37 +631,180 @@ class ClusterRuntime:
                 return
             self._maybe_launch(job, COORDINATOR, t, len(req.output))
 
+    # -- speculative verify results (coordinator) -----------------------------
+    def _on_spec_result(self, job: _Job, epoch: int, j: int, greedy) -> None:
+        """A verify pass's greedy vector reached the coordinator: accept
+        the longest draft prefix, confirm those tokens (plus the bonus
+        token) strictly in order, and on the first mismatch bump the epoch
+        and roll every stage node back to the accepted prefix."""
+        if job.epoch != epoch:
+            return
+        req = job.req
+        drafts = job.spec_drafts
+        greedy = [int(t) for t in np.asarray(greedy).reshape(-1)]
+        gamma = len(greedy) - 1
+        a = 0
+        while a < gamma and drafts[a] == greedy[a]:
+            a += 1
+        self.spec_accepted += a
+        self.spec_rejected += gamma - a
+        base = job.spec_base
+        # draft rows base+1..base+min(a, γ-1) hold proposals the target
+        # just confirmed — the draft need not consume them again
+        job.draft_pos = max(job.draft_pos, base + 1 + min(a, gamma - 1))
+        for t in greedy[:a + 1]:
+            self._confirm(job, t)
+            self.spec_confirmed += 1
+            job.pos += 1
+            reason = self._stop_reason(job)
+            if reason is not None:
+                # early stop inside the accepted prefix: completion
+                # releases every slot — no rollback needed
+                self._complete(job, reason)
+                self._spec_annotate()
+                return
+        if a < gamma:
+            # rejection: cancel the optimistic window and bump the epoch so
+            # no delivery of the dead pass runs after the rollback
+            keep = base + a + 1
+            self.cancelled_inflight += max(0, job.inflight)
+            job.epoch += 1
+            job.next_j = len(req.output)
+            job.next_pos = keep
+            self._rollback_job(job, keep)
+        self._spec_annotate()
+        self._maybe_launch(job, COORDINATOR, int(req.output[-1]),
+                           len(req.output))
+
+    def _rollback_job(self, job: _Job, keep: int) -> None:
+        """Truncate the job's KV to ``keep`` rows on every stage node before
+        the next pass launches.  The draft needs no rollback: its dense
+        caches are positional and ``draft_pos`` already points at the last
+        confirmed row."""
+        for node in dict.fromkeys(st.node for st in job.pipe.stages):
+            self.engines[node].rollback(job.slots[node], keep)
+
+    def _spec_note(self) -> str:
+        if self.draft is None:
+            return ""
+        return (f"spec[proposed={self.spec_proposed} "
+                f"accepted={self.spec_accepted} "
+                f"rejected={self.spec_rejected} "
+                f"rate={self.spec_acceptance_rate:.2f} "
+                f"tokens/rt={self.spec_tokens_per_round_trip:.2f}]")
+
+    def _spec_annotate(self) -> None:
+        self.transport.annotations["spec"] = self._spec_note()
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of draft proposals the target's greedy pass accepted."""
+        return self.spec_accepted / max(1, self.spec_proposed)
+
+    @property
+    def spec_tokens_per_round_trip(self) -> float:
+        """Tokens confirmed per verify round trip (1 + accepted prefix)."""
+        return self.spec_confirmed / max(1, self.spec_rounds)
+
     # -- decode pass launch (window) -----------------------------------------
+    def _spec_gamma(self, job: _Job) -> int:
+        """Draft length of the next verify round, clamped so every position
+        could still be confirmed: the round produces output indices
+        ``next_j .. next_j+γ`` and writes cache rows ``next_pos ..
+        next_pos+γ`` (under ``max_len``)."""
+        return max(0, min(self.spec_tokens,
+                          job.req.max_new_tokens - job.next_j - 1,
+                          self.ec.max_len - 1 - job.next_pos))
+
+    def _draft_propose(self, job: _Job, gamma: int) -> List[int]:
+        """Run the coordinator-side draft: catch up on confirmed tokens it
+        has not consumed (one multi-token decode over rows
+        ``draft_pos..next_pos``), then propose ``gamma`` greedy tokens.
+        Rejected rows of earlier rounds are overwritten in place."""
+        eng, slot = self.draft, job.draft_slot
+        req = job.req
+        P = len(req.prompt)
+        p = job.next_pos
+
+        def tok_at(r: int) -> int:
+            # row r >= P holds output[r - P] (prefill fed prompt + output
+            # contiguously, so this covers resumed requests too)
+            return int(req.prompt[r]) if r < P else int(req.output[r - P])
+
+        catch = [tok_at(r) for r in range(job.draft_pos, p + 1)]
+        out = eng.decode_stage([DecodeItem(slot=slot, pos=job.draft_pos,
+                                           entry=0, tokens=catch)])[0]
+        logits = out.logits
+        cur = int(np.argmax(logits[-1] if logits.ndim == 2 else logits))
+        drafts = [cur]
+        for s in range(1, gamma):
+            out = eng.decode_stage([DecodeItem(slot=slot, pos=p + s,
+                                               entry=0, token=cur)])[0]
+            cur = int(np.argmax(out.logits))
+            drafts.append(cur)
+        job.draft_pos = p + 1        # rows 0..p are now consumed
+        return drafts
+
     def _maybe_launch(self, job: _Job, src: str, tok: int, expect_j: int
                       ) -> None:
         """Launch the decode pass producing output index ``expect_j`` if no
         one else has (the final stage races the coordinator for it), the
         hard budgets allow it to ever be confirmed, and the in-flight window
-        has room."""
+        has room.
+
+        Jobs holding a draft slot launch verify passes instead: γ draft
+        proposals ride with the confirmed token as one multi-token pass.
+        Only the coordinator launches them (the draft lives there), and one
+        verify pass is in flight per request — the optimistic window
+        ``next_j = j+γ+1`` stays closed until the round confirms or rolls
+        back."""
         req = job.req
+        spec = job.draft_slot is not None
+        if spec and src != COORDINATOR:
+            return                   # the final stage cannot draft
         if req.done or job.next_j != expect_j:
             return
         if job.next_j >= req.max_new_tokens or job.next_pos >= self.ec.max_len:
             return                   # pass could never be confirmed
-        if job.inflight >= self.max_inflight:
+        if spec and job.inflight != 0:
+            return                   # one verify round in flight at a time
+        if job.inflight >= self.max_inflight and not spec:
             return                   # window full: coordinator relaunches
+        gamma = self._spec_gamma(job) if spec else 0
         pos, j, epoch = job.next_pos, job.next_j, job.epoch
-        if not self._reserve_inflight(job, pos + 1):
+        if not self._reserve_inflight(job, pos + gamma + 1):
             return                   # job itself was preempted reserving
+        first = job.pipe.stages[0].node
+        if gamma >= 1:
+            drafts = self._draft_propose(job, gamma)
+            job.spec_drafts = drafts
+            job.spec_base = pos
+            job.next_j = j + gamma + 1      # optimistic: rolled back on
+            job.next_pos = pos + gamma + 1  # rejection (epoch bump)
+            self.spec_rounds += 1
+            self.spec_proposed += gamma
+            toks = np.asarray([int(tok)] + drafts, np.int32)
+            self._send(src, first, toks,
+                       (gamma + 1) * self.profile.token_bytes,
+                       lambda t, e=epoch, p=pos, jj=j, n=gamma + 1:
+                       self._enqueue_decode(job, e, 0, 0, None, p, jj,
+                                            toks=t, spec=True, nt=n))
+            return
         job.next_j = j + 1
         job.next_pos = pos + 1
-        self._send(src, job.pipe.stages[0].node, int(tok),
-                   self.profile.token_bytes,
+        self._send(src, first, int(tok), self.profile.token_bytes,
                    lambda t, e=epoch, p=pos, jj=j:
                    self._enqueue_decode(job, e, 0, int(t), None, p, jj))
 
     def _enqueue_decode(self, job: _Job, epoch: int, si: int, tok: int,
-                        h, pos: int, j: int) -> None:
+                        h, pos: int, j: int, toks=None, spec: bool = False,
+                        nt: int = 1) -> None:
         if job.epoch != epoch:
             return
         node = job.pipe.stages[si].node
         self._ready[node].append(dict(job=job, epoch=epoch, si=si, tok=tok,
-                                      h=h, pos=pos, j=j))
+                                      h=h, pos=pos, j=j, toks=toks,
+                                      spec=spec, nt=nt))
 
     def _grow_or_preempt(self, eng, node: str, job: _Job, tokens: int
                          ) -> bool:
@@ -558,7 +842,7 @@ class ClusterRuntime:
             job = w["job"]
             if job.epoch != w["epoch"]:
                 continue
-            self._grow_or_preempt(eng, node, job, w["pos"] + 1)
+            self._grow_or_preempt(eng, node, job, w["pos"] + w["nt"])
         while work:
             batch = [w for w in work[:self.ec.max_batch]
                      if w["job"].epoch == w["epoch"]]
@@ -568,11 +852,24 @@ class ClusterRuntime:
             items = [DecodeItem(slot=w["job"].slots[node], pos=w["pos"],
                                 entry=w["job"].pipe.stages[w["si"]]
                                 .layers.start,
-                                token=w["tok"], h=w["h"]) for w in batch]
+                                token=w["tok"], h=w["h"], tokens=w["toks"])
+                     for w in batch]
             outs = eng.decode_stage(items)
             for w, out in zip(batch, outs):
                 job, si, epoch, j = w["job"], w["si"], w["epoch"], w["j"]
                 if si == len(job.pipe.stages) - 1:
+                    if w["spec"]:
+                        # verify pass: no sampling, no node-side launch —
+                        # the greedy argmax of each verified position goes
+                        # to the coordinator, which owns acceptance and
+                        # rollback
+                        greedy = np.argmax(out.logits, axis=-1).astype(
+                            np.int32).reshape(-1)
+                        self._send(node, COORDINATOR, (j, greedy),
+                                   len(greedy) * self.profile.token_bytes,
+                                   lambda p, jb=job, e=epoch:
+                                   self._on_spec_result(jb, e, p[0], p[1]))
+                        continue
                     tok = eng.sample(out.logits, job.req.temperature)
                     self._send(node, COORDINATOR, (j, tok),
                                self.profile.token_bytes,
@@ -583,16 +880,22 @@ class ClusterRuntime:
                     self._maybe_launch(job, node, tok, j + 1)
                 else:
                     nxt = job.pipe.stages[si + 1].node
-                    self._send(node, nxt, out.h, self._act_bytes(1),
+                    n = w["nt"]
+                    self._send(node, nxt, out.h, self._act_bytes(n),
                                lambda h, jb=job, e=epoch, s=si + 1,
-                               p=w["pos"], jj=j:
-                               self._enqueue_decode(jb, e, s, 0, h, p, jj))
+                               p=w["pos"], jj=j, sp=w["spec"], nn=n:
+                               self._enqueue_decode(jb, e, s, 0, h, p, jj,
+                                                    spec=sp, nt=nn))
 
     # -- completion / preemption ---------------------------------------------
     def _release_all(self, job: _Job) -> None:
         for node, slot in job.slots.items():
             self.engines[node].release(slot)
         job.slots = {}
+        if job.draft_slot is not None:
+            self.draft.release(job.draft_slot)
+        job.draft_slot = None
+        job.draft_pos = 0
 
     def _complete(self, job: _Job, reason: str) -> None:
         req = job.req
@@ -601,10 +904,16 @@ class ClusterRuntime:
         req.finished_s = self.clock()
         # cancel in-flight passes (a stop confirmed while token t+1 is
         # mid-pipeline): the epoch bump kills their deliveries
+        self.cancelled_inflight += max(0, job.inflight)
         job.epoch += 1
         job.inbox = {}
+        t0 = self._vfirst.pop(req.request_id, None)
+        if t0 is not None and len(req.output) > 1:
+            self.decode_latencies[req.request_id] = \
+                (self._now - t0) / (len(req.output) - 1)
         self._release_all(job)
         self.jobs.pop(req.request_id, None)
+        self.completed += 1
 
     def _preempt(self, job: _Job) -> None:
         """Pool exhausted: evict pipeline-wide, keep generated tokens,
@@ -621,3 +930,9 @@ class ClusterRuntime:
         """Allocated pages per paged node (dense nodes have no pool)."""
         return {n: u for n, e in self.engines.items()
                 if (u := e.pool_used()) is not None}
+
+    def mean_decode_latency(self) -> float:
+        """Mean per-token decode latency on the virtual clock, over
+        completed requests that decoded at least one token past prefill."""
+        lats = list(self.decode_latencies.values())
+        return sum(lats) / len(lats) if lats else 0.0

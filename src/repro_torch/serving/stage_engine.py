@@ -20,15 +20,21 @@ Slot mechanics: the dense caches (and the page pool's block table) carry
 padded to a fixed width with scratch rows, whose writes land in the
 scratch cache row (or page 0), which nothing ever reads.
 
+Speculative verify passes arrive as multi-token items (``DecodeItem.tokens``,
+or ``h`` of shape (n, 1, d) past the entry stage); ``decode_stage`` runs
+them as position-ordered sub-batches, so a request's KV write history is
+that of ``n`` ordinary decode steps, and ``rollback`` forgets a rejected
+draft suffix.
+
 Activations between stages stay device tensors; logits leave the device as
-float32 numpy rows for sampling.  Not ported yet: speculative verify items
-and the paged engine's ``rollback`` (ROADMAP queue 1 item 3), and the KV
-handoff (``export_kv`` / ``import_kv``) of disaggregated serving (item 4).
+float32 numpy rows for sampling.  Not ported yet: the KV handoff
+(``export_kv`` / ``import_kv``) of disaggregated serving (ROADMAP queue 1
+item 4).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,20 +54,44 @@ from .sampling import sample_token
 
 @dataclasses.dataclass
 class DecodeItem:
-    """One request's decode-step input resident at a node this iteration:
-    ``token`` (entry 0) or ``h``, the (1, 1, d) incoming activations."""
+    """One request's decode-step input resident at a node this iteration.
+
+    A single-token item carries ``token`` (entry 0) or ``h`` of shape
+    (1, 1, d).  A speculative verify pass carries ``tokens`` — the last
+    confirmed token followed by the draft proposals, consumed at positions
+    ``pos .. pos+n-1`` — or, downstream of the entry stage, ``h`` of shape
+    (n, 1, d)."""
 
     slot: int
-    pos: int                      # absolute position of the token
+    pos: int                      # absolute position of the FIRST token
     entry: int                    # request's entry layer at this node
     token: int = 0                # consumed only when entry == 0
-    h: Optional[torch.Tensor] = None
+    h: Optional[torch.Tensor] = None   # (n, 1, d) incoming activations
+    tokens: Optional[Sequence[int]] = None  # verify pass (entry == 0 only)
+
+    @property
+    def n(self) -> int:
+        """Token count of this item (1 for ordinary decode)."""
+        if self.tokens is not None:
+            return len(self.tokens)
+        if self.h is not None and self.h.ndim == 3:
+            return int(self.h.shape[0])
+        return 1
+
+    def substep(self, s: int) -> "DecodeItem":
+        """The single-token item for sub-step ``s`` (position ``pos + s``)."""
+        return DecodeItem(
+            slot=self.slot, pos=self.pos + s, entry=self.entry,
+            token=int(self.tokens[s]) if self.tokens is not None
+            else self.token,
+            h=None if self.h is None else self.h[s:s + 1])
 
 
 @dataclasses.dataclass
 class DecodeOut:
-    h: Optional[torch.Tensor]     # (1, 1, d) outgoing activations
-    logits: Optional[np.ndarray]  # (V,) float32 at the final stage
+    h: Optional[torch.Tensor]     # (n, 1, d) outgoing activations
+    logits: Optional[np.ndarray]  # (V,) float32 at the final stage, or
+                                  # (n, V) for a verify pass
 
 
 class _StageEngineBase:
@@ -150,13 +180,60 @@ class _StageEngineBase:
         logits (B,V) float32 numpy | None) over the padded batch."""
         raise NotImplementedError
 
+    def _spec_begin(self, it: DecodeItem) -> None:
+        """Hook before a multi-token item's first sub-step.  A no-op for
+        param-dtype pools, whose row-granular writes make truncation exact
+        (int8 pools need frontier-page snapshots: ROADMAP queue 1 item 1)."""
+
+    def _snap_substep(self, it: DecodeItem, s: int) -> None:
+        """Hook after a multi-token item's sub-step ``s`` wrote its KV; a
+        no-op for param-dtype pools (see ``_spec_begin``)."""
+
+    def rollback(self, slot: int, tokens: int) -> None:
+        """Forget ``slot``'s rows >= ``tokens`` (rejected draft suffix)."""
+        raise NotImplementedError
+
     def decode_stage(self, items: List[DecodeItem]) -> List[DecodeOut]:
         """ONE batched decode step over the stage-work resident this
-        iteration (one token per request)."""
-        h, l = self._decode_step(items)
-        return [DecodeOut(h=h[i:i + 1],
-                          logits=l[i] if l is not None else None)
-                for i in range(len(items))]
+        iteration.  Multi-token (speculative verify) items run as
+        position-ordered sub-batches: sub-step ``s`` batches the s-th token
+        of every item that has one, so a request's token at ``pos+s``
+        decodes strictly after its KV write at ``pos+s-1`` — the write
+        history of ``n`` ordinary decode steps, which keeps greedy
+        speculative output equal to non-speculative output."""
+        n = max(it.n for it in items)
+        if n == 1:
+            # normalize length-1 ``tokens`` items into plain token items
+            items = [it if it.tokens is None else it.substep(0)
+                     for it in items]
+            h, l = self._decode_step(items)
+            return [DecodeOut(h=h[i:i + 1],
+                              logits=l[i] if l is not None else None)
+                    for i in range(len(items))]
+        for it in items:
+            if it.n > 1:
+                self._spec_begin(it)
+        hs: List[List[torch.Tensor]] = [[] for _ in items]
+        ls: List[List[np.ndarray]] = [[] for _ in items]
+        for s in range(n):
+            sel = [i for i, it in enumerate(items) if s < it.n]
+            h, l = self._decode_step([items[i].substep(s) for i in sel])
+            for k, i in enumerate(sel):
+                hs[i].append(h[k:k + 1])
+                if l is not None:
+                    ls[i].append(l[k])
+                if items[i].n > 1:
+                    self._snap_substep(items[i], s)
+        outs = []
+        for i, it in enumerate(items):
+            if it.n == 1:   # keep single-token output shapes: (1,1,d) / (V,)
+                outs.append(DecodeOut(h=hs[i][0],
+                                      logits=ls[i][0] if ls[i] else None))
+            else:
+                outs.append(DecodeOut(
+                    h=torch.cat(hs[i], dim=0),
+                    logits=np.stack(ls[i], axis=0) if ls[i] else None))
+        return outs
 
 
 def _splice(full: torch.Tensor, one: torch.Tensor, slot: int) -> None:
@@ -324,3 +401,12 @@ class PagedStageEngine(_StageEngineBase):
         self.decode_steps += 1
         return (h, logits.float().cpu().numpy()
                 if logits is not None else None)
+
+    # -- speculative rollback --------------------------------------------
+    def rollback(self, slot: int, tokens: int) -> None:
+        """Truncate ``slot``'s KV to ``tokens`` rows after a partially
+        rejected verify pass: param-dtype writes are row-granular, so the
+        kept rows are untouched and the rejected ones are masked by
+        position.  (int8 pools would also restore the kept frontier page:
+        ROADMAP queue 1 item 1.)"""
+        self.pool.truncate(slot, tokens)

@@ -200,12 +200,15 @@ def test_planner_copy_places_like_reference():
 
 
 def test_unported_options_raise(port_model):
+    """int8 KV pools (also beside a draft model) and the wall-clock loop
+    are refused, each naming its ROADMAP item."""
     cfg, params = port_model
     p = port_plan(cfg, {"n0": (0, 2), "n1": (2, 4)})
-    for kw in (dict(kv_dtype="int8"),
-               dict(draft_cfg=cfg, draft_params=params),
-               dict(realtime=True)):
-        with pytest.raises(NotImplementedError):
+    for kw, item in ((dict(kv_dtype="int8"), 1),
+                     (dict(kv_dtype="int8", draft_cfg=cfg,
+                           draft_params=params), 1),
+                     (dict(realtime=True), 6)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             ClusterRuntime(cfg, params, p, EC, device="cpu", **kw)
 
 
@@ -252,6 +255,24 @@ def test_serve_cli_dense_and_paged_on_cpu(mode):
     else:
         out = _serve_cli("--paged", "--prompt", "40", "--batch", "3")
         assert "paged: 3 reqs, 12 tokens" in out and "pool drained" in out
+
+
+def test_serve_cli_spec_decoding_on_cpu():
+    """``--draft``: the target's own architecture and seed as the draft;
+    the sampled ids equal the non-speculative run's, the draft's slots are
+    released with the pools, and the spec counters, the virtual-clock
+    decode latency and the cancelled passes are printed."""
+    argv = ("--cluster", "A100,L4", "--stages", "2", "--prompt", "20")
+    out = _serve_cli(*argv, "--draft", "smollm_360m", "--spec-tokens", "3")
+    assert "pools drained on every node" in out
+    assert "draft: smollm-smoke (4L d=64 bfloat16), spec_tokens=3" in out
+    assert "spec[proposed=" in out and "tokens/rt=" in out
+    assert "mean decode latency (virtual clock" in out
+    assert "cancelled in-flight passes: " in out
+
+    def ids(text):
+        return [ln for ln in text.splitlines() if ln.startswith("sampled")]
+    assert ids(out) == ids(_serve_cli(*argv))
 
 
 def test_serve_cli_mesh_path_raises():
