@@ -87,11 +87,43 @@ Phases (any failure raises and the script exits non-zero):
                 first-decode logits allclose at atol=rtol=1e-3, tokens
                 equal; then at full width and 4 layers, the dense cluster,
                 paged cluster, ``Engine`` and ``PagedEngine`` on cuda, the
-                dense cluster on the CPU, and the paged and dense clusters
+                dense cluster on the CPU, the paged and dense clusters
                 speculating with a bad draft (another seed's weights) on
                 cuda (and the paged one with a perfect draft, whose
-                acceptance in f32 is printed): equal greedy tokens, dense
-                first-prefill logits cuda vs cpu within 1e-3.
+                acceptance in f32 is printed), and phase 11's runs (a),
+                (c) and (e) with their plans cut to [0,4), [0,2) and
+                [2,4): equal greedy tokens, dense first-prefill logits
+                cuda vs cpu within 1e-3.
+  11. disaggregated serving — runs after phase 5's dense run, whose tokens
+                it reuses.  Plans of ``disaggregated_placement`` on a full
+                mesh of A100s at 1 ms and 10 Gb/s (the links phase 6
+                models), driven through ``run_cluster(plan=...)`` with
+                phase 5's weights, 32 layers split at 16: (a) prefill
+                {n0: all}, decode {n1: [0,16), n2: [16,32)}, paged, phase
+                5's requests, at depth 1 and 2; (b) prefill {n0: [0,16),
+                n1: [16,32)}, decode {n2: [0,16), n1: [16,32)}: n1 is
+                ``mixed``, depth 2; (c) plan (a) dense, the dense phase's
+                requests; (d) plan (a) paged with the perfect draft of
+                phase 6, γ = 4; (e) plan (a) plus a full-model decode node
+                n3, depth 2: stepped until a request decoding through n1
+                has two tokens, then ``fail_node("n1")``,
+                ``replan_after_failure`` and ``apply_plan``, run to the
+                end.  Checks: every request done, every pool and slot
+                released; (a)-(d) greedy tokens equal to phase 5's (dense:
+                the dense phase's); (a) decode served on n1 and n2 only,
+                n0 decodes nothing, each handoff link carries >= one
+                transfer per request and exactly the profile's KV bytes
+                per token and layer x prompt tokens x 16; (b) n1 -> n2
+                carries tokens only; (c) K2 launches == 32 x n0's
+                prefills, all tensor-core, none on the decode nodes; (e)
+                n1 gone, preemptions > 0, and the bf16 tokens that agree
+                with phase 5's are printed.  K1 launches == decode passes
+                x paged layers over every engine that ran (n1's too), none
+                split; K2 none but (c)'s and the draft's prefills x its
+                layers in (d).  Then one handoff byte for byte: a slot
+                exported from n0, imported on n1 and re-exported from n1
+                is ``torch.equal``.  Prints each run's tokens/s (host
+                clock), virtual-clock mean TPOT and link ledger.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
@@ -120,11 +152,15 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as k1  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ref)
+from repro_torch.core import (LayerRange, MILPOptions,  # noqa: E402
+                              ModelProfile, disaggregated_placement,
+                              full_mesh_cluster, plan, replan_after_failure)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init  # noqa: E402
 from repro_torch.models.common import map_tree  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
-from repro_torch.serving.runtime import InProcessTransport  # noqa: E402
+from repro_torch.serving.runtime import (  # noqa: E402
+    ClusterRuntime, InProcessTransport)
 from repro_torch.serving.stage_engine import (  # noqa: E402
     PagedStageEngine, StageEngine, _StageEngineBase)
 
@@ -909,7 +945,7 @@ def spec_serving_phase(cfg, params, ref_tokens, card):
               "equal to phase 5's; pools and draft slots drained")
         out[name] = dict(counts, tokens_per_s=toks / dt, latency_s=lat,
                          spec=rt._spec_note())
-    return out
+    return out, base_lat
 
 
 def dense_serving_phase(cfg, params, card):
@@ -952,7 +988,295 @@ def dense_serving_phase(cfg, params, card):
     print(f"  dense serving: {len(reqs)} requests, {toks} tokens in "
           f"{dt:.4f} s = {toks / dt:.2f} tokens/s on {card} (host clock, "
           f"after a warm-up run)")
-    return (launches, tc_launches), toks / dt, dt
+    return (launches, tc_launches), toks / dt, dt, [r.output for r in reqs]
+
+
+# ---------------------------------------------------------------------------
+# disaggregated prefill/decode and failover
+# ---------------------------------------------------------------------------
+
+def disagg_plan(cfg, prefill, decode):
+    """A plan of ``disaggregated_placement(prefill, decode)`` ({node: (start,
+    end)} groups) on a full mesh of A100s with 1 ms, 10 Gb/s links — the
+    tests' ``harness.make_cluster``."""
+    placement = disaggregated_placement(
+        {n: LayerRange(*r) for n, r in prefill.items()},
+        {n: LayerRange(*r) for n, r in decode.items()}, cfg.num_layers)
+    profile = ModelProfile.from_dims(
+        cfg.name, cfg.num_layers, cfg.d_model, max(cfg.d_ff, 1),
+        cfg.vocab_size, cfg.num_kv_heads, cfg.resolved_head_dim,
+        kv_page_size=PAGE)
+    cluster = full_mesh_cluster(len(placement.assignment),
+                                bandwidth=LINK_BYTES_PER_S,
+                                latency_s=LINK_DELAY_S)
+    return plan(cluster, profile, placement=placement)
+
+
+def disagg_layouts(L):
+    """The phase's placements over L layers: (a) one full-model prefill
+    node, a 2-stage decode replica; (b) a mixed node; (e) (a) plus a
+    full-model decode node n3, for failover."""
+    h = L // 2
+    one = ({"n0": (0, L)}, {"n1": (0, h), "n2": (h, L)})
+    mixed = ({"n0": (0, h), "n1": (h, L)}, {"n2": (0, h), "n1": (h, L)})
+    fail = ({"n0": (0, L)}, {"n1": (0, h), "n2": (h, L), "n3": (0, L)})
+    return one, mixed, fail
+
+
+def k1_expected(engines):
+    """K1 launches of a run: decode steps x paged layers over the paged
+    engines that ran."""
+    return sum(e.decode_steps * e.n_paged for e in engines
+               if isinstance(e, PagedStageEngine))
+
+
+def failover_run(cfg, args, params, layout):
+    """Serve ``args``' requests on ``layout`` at ``--max-inflight``, step
+    until a request whose decode pipeline crosses n1 has confirmed
+    two tokens, then ``fail_node``, ``replan_after_failure`` and
+    ``apply_plan``, and run to the end.  Returns (runtime, requests, every
+    engine that ran, n1's decode steps, the new plan, the tokens confirmed
+    before the failure, seconds)."""
+    failed = "n1"
+    p = disagg_plan(cfg, *layout)
+    rt = ClusterRuntime(cfg, params, p, serve.engine_config(args),
+                        paged=not args.dense, page_size=args.page_size,
+                        max_inflight=args.max_inflight,
+                        transport=link_model(), device=DEVICE)
+    reqs = serve.make_requests(cfg, args)
+    state = {}
+
+    def run():
+        for r in reqs:
+            rt.submit(r)
+        for _ in range(10000):
+            if any(failed in {st.node for st in j.pipe.stages}
+                   and len(j.req.output) >= 2 for j in rt.jobs.values()):
+                break
+            require(rt.step(), "runtime stalled before the failure")
+        require(rt.jobs, f"no request in flight through {failed}")
+        state["before"] = [list(r.output) for r in reqs]
+        seen = dict.fromkeys(rt.engines.values())
+        state["steps"] = rt.engines[failed].decode_steps
+        rt.fail_node(failed)
+        new = replan_after_failure(p, failed, MILPOptions(
+            time_limit_s=5.0, lns_rounds=0, fgls_rounds=10))
+        rt.apply_plan(new)
+        rt.run_until_done()
+        seen.update(dict.fromkeys(rt.engines.values()))
+        state["engines"], state["plan"] = list(seen), new
+    dt = serve.timed(torch.device(DEVICE), run)
+    return (rt, reqs, state["engines"], state["steps"], state["plan"],
+            state["before"], dt)
+
+
+def check_drained(rt, name):
+    used = rt.pool_pages_used()
+    held = {n: e.kv_tokens_used() for n, e in rt.engines.items()
+            if e.kv_tokens_used() or e.free_slots != len(e.slots)}
+    require(all(u == 0 for u in used.values()) and not held,
+            f"{name}: pages {used} or slots {held} not released")
+
+
+def handoff_bytes_check(rt, reqs, src, dsts, layers_each, name):
+    """Each (src, dst) link carried the profile's KV bytes of every
+    prompt's tokens x the layers it hands over, and >= one handoff per
+    request."""
+    kv = rt.profile.kv_bytes_per_token_layer
+    want = sum(kv * len(r.prompt) * layers_each for r in reqs)
+    for dst in dsts:
+        n, b = rt.transport.transfers[(src, dst)], \
+            rt.transport.bytes_sent[(src, dst)]
+        require(n >= len(reqs) and b == want,
+                f"{name}: {src}->{dst} {n} transfers / {b} bytes, expected "
+                f">= {len(reqs)} / {want}")
+
+
+def one_handoff_check(rt, cfg, args):
+    """Export a prefilled slot's layers [0, L/2) from n0, import them into
+    n1 and export again from n1: byte for byte the same tensors."""
+    src, dst = rt.engines["n0"], rt.engines["n1"]
+    prompt = serve.make_requests(cfg, args)[0].prompt
+    S, h = len(prompt), cfg.num_layers // 2
+    a, b = src.alloc_slot(100), dst.alloc_slot(100)
+    require(src.ensure(a, S) and dst.ensure(b, S + 1), "no room for a slot")
+    for off in range(0, S, PAGE):
+        src.prefill_chunk(a, prompt[off:off + PAGE], 0, off)
+    sent = src.export_kv(a, S, list(range(h)))
+    dst.import_kv(b, S, sent)
+    back = dst.export_kv(b, S, list(range(h)))
+    same = sent.keys() == back.keys() and all(
+        torch.equal(sent[l][k], back[l][k]) for l in sent for k in sent[l])
+    src.release(a)
+    dst.release(b)
+    nbytes = sum(t.numel() * t.element_size() for p in sent.values()
+                 for t in p.values())
+    require(same, "a KV handoff n0 -> n1 -> export is not byte-exact")
+    print(f"  one handoff: {S} tokens x {h} layers ({nbytes} B of pages) "
+          "n0 -> n1, re-exported from n1: torch.equal")
+
+
+def disagg_serving_phase(cfg, params, ref_tokens, dense_tokens, base_lat,
+                         card):
+    """Disaggregated prefill/decode over the Helix cluster, runs (a)-(e):
+    see the module note (phase 11).  Returns each run's rates, latency and
+    launch counts."""
+    L = cfg.num_layers
+    one, mixed, fail = disagg_layouts(L)
+    out = {}
+
+    def report(name, rt, reqs, dt, extra=""):
+        toks = sum(len(r.output) for r in reqs)
+        out[name] = dict(tokens_per_s=toks / dt,
+                         latency_s=rt.mean_decode_latency(),
+                         k1=k1.launches, k2=k2.launches)
+        print(f"  ({name}) {len(reqs)} requests, {toks} tokens in {dt:.4f} s "
+              f"= {toks / dt:.2f} tokens/s on {card} (host clock); mean "
+              f"decode latency {1e3 * rt.mean_decode_latency():.4f} ms/token "
+              f"(virtual clock) against {1e3 * base_lat:.4f} on phase 6's "
+              f"links without roles; K1 {k1.launches}, K2 {k2.launches}"
+              f"{extra}")
+        print(f"  ({name}) {rt.transport.describe()}")
+
+    # (a) paged, one prefill node, at depth 1 and 2
+    serve.run_cluster(cfg, serve.parse_args(
+        SERVE_ARGV + ["--device", DEVICE, "--new-tokens", "2"]), params,
+        plan=disagg_plan(cfg, *one), verbose=False)            # warm-up
+    for depth in (1, 2):
+        name = f"a depth{depth}"
+        args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE,
+                                              "--max-inflight", str(depth)])
+        zero_counts()
+        rt, reqs, _, dt = serve.run_cluster(cfg, args, params,
+                                            plan=disagg_plan(cfg, *one),
+                                            transport=link_model(),
+                                            verbose=False)
+        require(rt.disaggregated and [r.output for r in reqs] == ref_tokens,
+                f"({name}) tokens {[r.output for r in reqs]} differ from "
+                f"phase 5's {ref_tokens}")
+        check_requests(cfg, reqs, args.new_tokens)
+        check_drained(rt, name)
+        require(all({st.node for st in rt.served[r.request_id].stages}
+                    == {"n1", "n2"} for r in reqs),
+                f"({name}) decode served off the decode replica")
+        require(rt.engines["n0"].decode_steps == 0 and
+                sum(r.preemptions for r in reqs) == 0,
+                f"({name}) n0 decoded or a request was preempted")
+        handoff_bytes_check(rt, reqs, "n0", ("n1", "n2"), L // 2, name)
+        want = k1_expected(rt.engines.values())
+        require(k1.launches == want > 0 and k1.split_launches == 0 and
+                k2.launches == 0,
+                f"({name}) K1 {k1.launches} ({k1.split_launches} split), "
+                f"expected {want}; K2 {k2.launches}, expected 0")
+        report(name, rt, reqs, dt, f" = decode passes "
+               f"{({n: e.decode_steps for n, e in rt.engines.items()})} x "
+               "paged layers, none split; tokens equal to phase 5's")
+    one_handoff_check(rt, cfg, args)
+
+    # (b) a mixed node keeps its KV home
+    name = "b mixed"
+    args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE,
+                                          "--max-inflight", "2"])
+    zero_counts()
+    rt, reqs, p, dt = serve.run_cluster(cfg, args, params,
+                                        plan=disagg_plan(cfg, *mixed),
+                                        transport=link_model(), verbose=False)
+    tr = rt.transport
+    require(p.placement.meta["roles"] == {"n0": "prefill", "n1": "mixed",
+                                          "n2": "decode"},
+            f"({name}) roles {p.placement.meta['roles']}")
+    require([r.output for r in reqs] == ref_tokens,
+            f"({name}) tokens differ from phase 5's")
+    check_drained(rt, name)
+    handoff_bytes_check(rt, reqs, "n0", ("n2",), L // 2, name)
+    require(tr.bytes_sent[("n1", "n2")] ==
+            tr.transfers[("n1", "n2")] * rt.profile.token_bytes,
+            f"({name}) n1 -> n2 carried {tr.bytes_sent[('n1', 'n2')]} bytes "
+            f"in {tr.transfers[('n1', 'n2')]} transfers: not tokens only")
+    want = k1_expected(rt.engines.values())
+    require(k1.launches == want > 0 and k1.split_launches == 0 and
+            k2.launches == 0, f"({name}) K1 {k1.launches}, expected {want}")
+    report(name, rt, reqs, dt, "; n1's KV stayed home (n1 -> n2: tokens "
+           "only); tokens equal to phase 5's")
+
+    # (c) dense: K2 in every prefill on n0, none on the decode nodes
+    name = "c dense"
+    dargs = serve.parse_args(DENSE_ARGV + ["--device", DEVICE])
+    serve.run_cluster(cfg, serve.parse_args(
+        DENSE_ARGV + ["--device", DEVICE, "--new-tokens", "2"]), params,
+        plan=disagg_plan(cfg, *one), verbose=False)            # warm-up
+    zero_counts()
+    rt, reqs, _, dt = serve.run_cluster(cfg, dargs, params,
+                                        plan=disagg_plan(cfg, *one),
+                                        transport=link_model(), verbose=False)
+    require([r.output for r in reqs] == dense_tokens,
+            f"({name}) tokens differ from the dense phase's")
+    check_drained(rt, name)
+    pre = {n: e.prefills for n, e in rt.engines.items()}
+    require(k2.launches == L * pre["n0"] > 0 and
+            k2.tc_launches == k2.launches and pre["n1"] == pre["n2"] == 0
+            and k1.launches == 0,
+            f"({name}) K2 {k2.launches} ({k2.tc_launches} tensor-core) for "
+            f"prefills {pre}; K1 {k1.launches}")
+    handoff_bytes_check(rt, reqs, "n0", ("n1", "n2"), L // 2, name)
+    report(name, rt, reqs, dt, f" = {L} x {pre['n0']} prefills on n0, all "
+           "tensor-core; decode nodes ran no prefill; decode passes "
+           f"{({n: e.decode_steps for n, e in rt.engines.items()})}; tokens "
+           "equal to the dense phase's")
+
+    # (d) speculative, the perfect draft
+    name = "d speculative"
+    sargs = serve.parse_args(SPEC_ARGV + ["--draft", "smollm_360m",
+                                          "--device", DEVICE])
+    zero_counts()
+    rt, reqs, _, dt = serve.run_cluster(cfg, sargs, params,
+                                        plan=disagg_plan(cfg, *one),
+                                        transport=link_model(), verbose=False)
+    require([r.output for r in reqs] == ref_tokens,
+            f"({name}) tokens differ from phase 5's")
+    check_drained(rt, name)
+    want = k1_expected(rt.engines.values())
+    dl = rt.draft.layers.num_layers
+    require(k1.launches == want > 0 and k1.split_launches == 0 and
+            k2.launches == rt.draft.prefills * dl > 0 and
+            k2.tc_launches == k2.launches and
+            rt.draft.free_slots == len(rt.draft.slots),
+            f"({name}) K1 {k1.launches} (expected {want}), K2 {k2.launches} "
+            f"for {rt.draft.prefills} draft prefills x {dl} layers")
+    report(name, rt, reqs, dt, f"; {rt._spec_note()} rounds="
+           f"{rt.spec_rounds}; K2 = {rt.draft.prefills} draft prefills x "
+           f"{dl} layers; tokens equal to phase 5's")
+    out[name]["spec"] = rt._spec_note()
+
+    # (e) failover of decode node n1 mid-decode, depth 2
+    name = "e failover"
+    fargs = serve.parse_args(SERVE_ARGV + ["--device", DEVICE,
+                                           "--max-inflight", "2"])
+    zero_counts()
+    rt, reqs, engines, n1_steps, new, before, dt = failover_run(
+        cfg, fargs, params, fail)
+    check_requests(cfg, reqs, fargs.new_tokens)
+    check_drained(rt, name)
+    want = k1_expected(engines)
+    pre = sum(r.preemptions for r in reqs)
+    require("n1" not in rt.engines and pre > 0 and
+            k1.launches == want > 0 and k1.split_launches == 0 and
+            k2.launches == 0,
+            f"({name}) engines {sorted(rt.engines)}, preemptions {pre}, K1 "
+            f"{k1.launches} (expected {want}), K2 {k2.launches}")
+    agree = sum(a == b for r, ref in zip(reqs, ref_tokens)
+                for a, b in zip(r.output, ref))
+    early = sum(a == b for out_, ref in zip(before, ref_tokens)
+                for a, b in zip(out_, ref))
+    report(name, rt, reqs, dt, f" = decode passes over every engine that "
+           f"ran (n1: {n1_steps} before it failed) x paged layers; "
+           f"{pre} preemptions; replanned to " + ", ".join(
+               f"{n}=[{r.start},{r.end})" for n, r in
+               sorted(new.placement.assignment.items()))
+           + f" (disaggregated: {rt.disaggregated}); bf16 tokens equal to "
+           f"phase 5's: {agree} of {sum(map(len, ref_tokens))} ({early} of "
+           f"the {sum(map(len, before))} confirmed before the failure)")
+    return out
 
 
 # kernel names as the profiler shows them
@@ -1147,6 +1471,29 @@ def dense_cross_check(cfg32, params32):
                 f"{rt.draft.free_slots}")
         tokens[f"{mode} cluster cuda, {name} draft"] = [r.output for r in reqs]
         print(f"  {mode} cluster, {name} draft: {rt._spec_note()}")
+    one, _, fail = disagg_layouts(DENSE_XCHECK_LAYERS)
+    for mode in ("paged", "dense"):
+        dargs = serve.parse_args(DENSE_XCHECK_ARGV + ["--device", DEVICE]
+                                 + (["--dense"] if mode == "dense" else []))
+        rt, reqs, _, _ = serve.run_cluster(cfg4, dargs, params4,
+                                           plan=disagg_plan(cfg4, *one),
+                                           transport=link_model(),
+                                           verbose=False)
+        check_drained(rt, f"{mode} disaggregated f32")
+        tokens[f"{mode} disaggregated cuda"] = [r.output for r in reqs]
+    fargs = serve.parse_args(DENSE_XCHECK_ARGV + ["--device", DEVICE,
+                                                  "--max-inflight", "2"])
+    rt, reqs, _, _, new, _, _ = failover_run(cfg4, fargs, params4, fail)
+    check_drained(rt, "failover f32")
+    require("n1" not in rt.engines and
+            sum(r.preemptions for r in reqs) > 0,
+            f"failover f32: engines {sorted(rt.engines)}, preemptions "
+            f"{[r.preemptions for r in reqs]}")
+    tokens["paged disaggregated cuda, n1 failed"] = [r.output for r in reqs]
+    print(f"  failover f32: {sum(r.preemptions for r in reqs)} preemptions, "
+          "replanned to " + ", ".join(
+              f"{n}=[{r.start},{r.end})"
+              for n, r in sorted(new.placement.assignment.items())))
     for name, toks in tokens.items():
         print(f"  {name}: {toks}")
     require(all(t == g_tok for t in tokens.values()),
@@ -1277,11 +1624,15 @@ def main() -> int:
         cfg, params)
 
     phase("serving: speculative paged cluster")
-    spec = spec_serving_phase(cfg, params, paged_tokens, card)
+    spec, links_lat = spec_serving_phase(cfg, params, paged_tokens, card)
 
     phase("serving: dense cluster")
-    k2_launches, dense_tok_s, dense_s = dense_serving_phase(cfg, params,
-                                                           card)
+    k2_launches, dense_tok_s, dense_s, dense_tokens = dense_serving_phase(
+        cfg, params, card)
+
+    phase("serving: disaggregated prefill/decode and failover")
+    disagg = disagg_serving_phase(cfg, params, paged_tokens, dense_tokens,
+                                  links_lat, card)
 
     phase("engines: Engine and PagedEngine")
     engine_k2, engine_k1 = engines_phase(cfg, params)
@@ -1324,6 +1675,7 @@ def main() -> int:
          "engine_split_launches": engine_k1[1],
          "spec_launches": {k: v["k1"] for k, v in spec.items()},
          "spec_split_launches": {k: v["k1_split"] for k, v in spec.items()},
+         "disagg_launches": {k: v["k1"] for k, v in disagg.items()},
          "max_abs_err": k1_err, "worst_err_over_limit": k1_worst,
          "ms": main1["ms"], "plain_ms": main1["plain_ms"],
          "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
@@ -1340,6 +1692,7 @@ def main() -> int:
          "engine_launches": engine_k2[0], "engine_tc_launches": engine_k2[1],
          "spec_launches": {k: v["k2"] for k, v in spec.items()},
          "spec_tc_launches": {k: v["k2_tc"] for k, v in spec.items()},
+         "disagg_launches": {k: v["k2"] for k, v in disagg.items()},
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],

@@ -17,6 +17,11 @@ Single-node paged-KV serving (``PagedEngine``, a full-rectangle pool):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --paged --batch 4 --prompt 40 --new-tokens 8
 
+Disaggregated prefill/decode and failover have no flag, as in the
+reference's ``launch/serve.py``: pass ``run_cluster`` a plan of a
+``core.disaggregated_placement`` (``chip_smoke.py`` does), or drive
+``ClusterRuntime`` with one and call ``fail_node`` / ``apply_plan``.
+
 Greedy speculative decoding over the cluster: ``--draft ARCH`` puts a
 draft model at the coordinator (the registry's config of that arch, at the
 target's width: SMOKE with ``--smoke``; weights from ``--seed``, so
@@ -101,16 +106,25 @@ def _report(reqs, dt, dev, what):
     print("sampled ids:", [r.output for r in reqs[:2]])
 
 
+def engine_config(args) -> EngineConfig:
+    """The cluster's stage-engine budgets: ``--batch`` slots of
+    ``--max-len`` tokens, prompts in chunks of at most 16."""
+    return EngineConfig(max_batch=args.batch, max_len=args.max_len,
+                        prompt_len=min(16, args.max_len))
+
+
 def run_cluster(cfg, args, params=None, *, draft=None, transport=None,
-                verbose: bool = True):
+                plan=None, verbose: bool = True):
     """Serve ``--batch`` random prompts through the cluster runtime (paged
     stage engines, or dense ones with ``--dense``), speculatively when
     ``draft`` names a ``(draft_cfg, draft_params)`` pair or ``--draft`` an
     arch; ``transport`` (an ``InProcessTransport``) models the links on the
-    runtime's virtual clock (default: no delay).  Returns (runtime,
-    requests, plan, seconds)."""
+    runtime's virtual clock (default: no delay).  ``plan`` replaces the
+    MILP's plan of ``--cluster`` — a ``core.disaggregated_placement``
+    plan serves disaggregated prefill/decode.  Returns (runtime, requests,
+    plan, seconds)."""
     dev = resolve_device(args.device)
-    p = make_plan(cfg, args)
+    p = plan if plan is not None else make_plan(cfg, args)
     if verbose:
         for node, rng_ in sorted(p.placement.assignment.items()):
             print(f"  {node}: layers [{rng_.start}, {rng_.end})")
@@ -127,9 +141,8 @@ def run_cluster(cfg, args, params=None, *, draft=None, transport=None,
                   f"spec_tokens={args.spec_tokens}")
         spec_kw = dict(draft_cfg=draft[0], draft_params=draft[1],
                        spec_tokens=args.spec_tokens)
-    ec = EngineConfig(max_batch=args.batch, max_len=args.max_len,
-                      prompt_len=min(16, args.max_len))
-    rt = ClusterRuntime(cfg, params, p, ec, paged=not args.dense,
+    rt = ClusterRuntime(cfg, params, p, engine_config(args),
+                        paged=not args.dense,
                         page_size=args.page_size,
                         max_inflight=args.max_inflight, device=dev,
                         transport=transport, **spec_kw)

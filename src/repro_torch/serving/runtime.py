@@ -50,24 +50,44 @@ delays (``InProcessTransport``: per-link latency plus bytes over
 bandwidth, and two hops per stage-to-stage send in the star topology), not
 by compute.
 
-Memory: admission takes a slot and the prompt's pages on every stage node
-up front (a dense engine's rectangle is reserved at construction);
-completion and preemption release KV on every node of the pipeline.  When
-a pool runs dry mid-decode the newest resident request is preempted
-pipeline-wide (recompute-on-readmit keeps its generated tokens).
+Disaggregated prefill/decode: a placement whose ``meta["roles"]`` splits
+the nodes into prefill and decode replica groups (``core.placement.
+disaggregated_placement``) gets one IWRR scheduler per role.  Each job
+compiles a ``Route`` at every (re)admission: prompt passes walk the prefill
+pipeline, decode passes the decode pipeline, and each prefill stage ships
+the KV of the layers a decode node reads (``export_kv`` / ``import_kv``)
+once its final chunk lands — a ``mixed`` node's KV stays home.  Decode
+launches wait until every handoff of the job has been imported
+(``kv_pending``), and prefill-only nodes free the job's slot once their
+handoffs have landed.  The handoff's link bytes are the profile's KV bytes
+per token and layer x tokens x layers.
+
+Memory: admission takes a slot and the prompt's pages on every node of the
+route up front (prefill nodes first; a dense engine's rectangle is
+reserved at construction); completion and preemption release KV on every
+node still held.  When a pool runs dry mid-decode the newest resident
+request is preempted pipeline-wide (recompute-on-readmit keeps its
+generated tokens).
+
+Failover: ``fail_node`` drops a node's engine and requeues every request
+whose route crossed it (its KV on survivors released); ``apply_plan``
+adopts a replanned placement (``core.planner.replan_after_failure``),
+rebuilding the engines whose slice changed and the role schedulers, and
+readmitted requests re-prefill their prompt and generated tokens.
 
 Scheduler feedback: after every iteration each node's true pool occupancy
-is written into the scheduler's ``KVEstimator`` (``_sync_kv``), and real
-pool capacities are installed at startup.
+is written into its role scheduler's ``KVEstimator`` (``_sync_kv``), and
+real pool capacities are installed at startup and after ``apply_plan``.
 
 Not ported yet (the arguments raise; ROADMAP queue 1): int8 KV pools
-(item 1), disaggregated prefill/decode (item 4), cancel, failover and
-``apply_plan`` (item 5), the wall-clock (realtime) loop, socket transports
-and workers (item 6), and models that are not all-paged (item 7).  Nor are
-the reference's guards against a transport that delivers a payload twice,
-but for the dense prefill's (item 6): the in-process transport delivers
-each payload once (it may reorder them: prefill chunks then wait for their
-predecessors, decode tokens in the coordinator's inbox).
+(item 1), cancellation and the autoscaler (item 5), the wall-clock
+(realtime) loop, socket transports, workers and worker-to-worker pushes
+(item 6), and models that are not all-paged (item 7).  Nor are the
+reference's guards against a transport that delivers a payload twice, but
+for the dense prefill's and the KV handoff's (item 6): the in-process
+transport delivers each payload once (it may reorder them: prefill chunks
+then wait for their predecessors, decode tokens in the coordinator's
+inbox).
 """
 from __future__ import annotations
 
@@ -80,7 +100,8 @@ import numpy as np
 
 from ..configs.base import ModelConfig
 from ..core.cluster import COORDINATOR
-from ..core.placement import LayerRange
+from ..core.placement import LayerRange, Placement
+from ..core.planner import plan as make_plan
 from ..models.common import resolve_device
 from ..models.paged import all_blocks_paged
 from ..models.stage import stage_num_paged_layers
@@ -155,9 +176,42 @@ class InProcessTransport:
 
 
 @dataclasses.dataclass
+class Route:
+    """A job's compiled dataflow: the pipeline that runs its prompt passes,
+    the one that runs its decode passes, and the KV handoffs bridging the
+    two replica groups.  For a placement without roles prefill and decode
+    are the same pipeline and there is no handoff.  Routes are compiled at
+    every (re)admission, so failover replans rebuild them for free.
+
+    ``handoffs`` maps a prefill stage index to the ``(decode node, global
+    layers)`` exports due once that stage's final prompt chunk lands —
+    layers are matched by global index, so any pair of prefill and decode
+    layer splits composes."""
+
+    prefill: Any                      # RequestPipeline for prompt passes
+    decode: Any                       # RequestPipeline for decode passes
+    handoffs: Dict[int, List[Tuple[str, List[int]]]] = \
+        dataclasses.field(default_factory=dict)
+
+    @property
+    def disaggregated(self) -> bool:
+        return self.prefill is not self.decode
+
+    @property
+    def nodes(self) -> set:
+        return ({st.node for st in self.prefill.stages}
+                | {st.node for st in self.decode.stages})
+
+
+@dataclasses.dataclass
 class _Job:
     req: Request
-    pipe: Any = None                 # RequestPipeline (kept across preempt)
+    pipe: Any = None                 # decode RequestPipeline (== route.decode)
+    route: Optional[Route] = None    # compiled dataflow (kept across preempt)
+    kv_pending: set = dataclasses.field(default_factory=set)
+                                     # (prefill stage idx, decode node) KV
+                                     # handoffs not yet imported: decode
+                                     # cannot launch until this empties
     slots: Dict[str, int] = dataclasses.field(default_factory=dict)
     pos: int = 0                     # tokens confirmed resident in caches
     epoch: int = 0                   # bumped on preempt/requeue/complete:
@@ -222,8 +276,6 @@ class ClusterRuntime:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if kv_dtype == "int8":
             raise _not_ported("int8 KV serving", 1)
-        if (plan.placement.meta or {}).get("roles"):
-            raise _not_ported("disaggregated placements", 4)
         if realtime:
             raise _not_ported("the wall-clock loop", 6)
         if engine_factory is not None:
@@ -245,7 +297,7 @@ class ClusterRuntime:
         if plan.model.num_layers != cfg.num_layers:
             raise ValueError(f"plan covers {plan.model.num_layers} layers; "
                              f"{cfg.name} has {cfg.num_layers}")
-        self.scheduler = plan.make_scheduler()
+        self._build_role_schedulers(plan)
         self.transport = transport or InProcessTransport()
         self.transport.bind(lambda d, fn: self._push(self._now + d, fn))
 
@@ -329,6 +381,39 @@ class ClusterRuntime:
                                 page_size=self.page_size,
                                 rng_seed=self.rng_seed, device=self.device)
 
+    # -- role schedulers (disaggregated prefill/decode) -----------------------
+    def _build_role_schedulers(self, plan) -> None:
+        """Install the IWRR scheduler(s).  A placement whose roles
+        (``meta["roles"]``: node -> prefill | decode | mixed) form distinct
+        prefill and decode groups gets a scheduler per role over the role's
+        sub-placement (max-flow on the role's subgraph, KV estimation over
+        its nodes); otherwise one scheduler serves both."""
+        roles = (plan.placement.meta or {}).get("roles") or {}
+        pre = {n for n, r in roles.items() if r in ("prefill", "mixed")}
+        dec = {n for n, r in roles.items() if r in ("decode", "mixed")}
+        if not (pre and dec) or pre == dec:
+            self.scheduler = plan.make_scheduler()
+            self.sched_prefill = self.scheduler
+            return
+
+        def sub(nodes: set):
+            p = Placement({n: plan.placement.assignment[n] for n in nodes},
+                          plan.placement.num_layers,
+                          meta=dict(plan.placement.meta))
+            bad = p.validate()
+            if bad:
+                raise ValueError(
+                    f"role group {sorted(nodes)} does not cover the model "
+                    f"on its own: {bad}")
+            return make_plan(plan.cluster, plan.model, placement=p)
+
+        self.scheduler = sub(dec).make_scheduler()
+        self.sched_prefill = sub(pre).make_scheduler()
+
+    @property
+    def disaggregated(self) -> bool:
+        return self.sched_prefill is not self.scheduler
+
     # -- event machinery ----------------------------------------------------
     def _push(self, t: float, fn: Callable[[], None]) -> None:
         self._eseq += 1
@@ -341,6 +426,10 @@ class ClusterRuntime:
     def _act_bytes(self, n_tokens: int) -> float:
         elt = {"bfloat16": 2, "float32": 4}[self.cfg.param_dtype]
         return float(n_tokens * self.cfg.d_model * elt)
+
+    def _kv_bytes(self, tokens: int, n_layers: int) -> float:
+        return float(self.profile.kv_bytes_per_token_layer
+                     * tokens * n_layers)
 
     # -- public API ---------------------------------------------------------
     def clock(self) -> float:
@@ -417,15 +506,20 @@ class ClusterRuntime:
 
     # -- KV feedback --------------------------------------------------------
     def _sync_kv(self, capacities: bool = False) -> None:
-        kv = self.scheduler.kv
-        if kv is None:
-            return
-        for node, eng in self.engines.items():
-            if node not in kv.capacity_tokens:
+        scheds = [self.scheduler]
+        if self.sched_prefill is not self.scheduler:
+            scheds.append(self.sched_prefill)
+        for sched in scheds:
+            kv = sched.kv
+            if kv is None:
                 continue
-            if capacities:
-                kv.capacity_tokens[node] = float(eng.kv_tokens_capacity())
-            kv.sync(node, float(eng.kv_tokens_used()))
+            for node, eng in self.engines.items():
+                if node not in kv.capacity_tokens:
+                    continue             # the other role group's node
+                if capacities:
+                    kv.capacity_tokens[node] = float(
+                        eng.kv_tokens_capacity())
+                kv.sync(node, float(eng.kv_tokens_used()))
 
     # -- admission ----------------------------------------------------------
     def _prefill_tokens(self, job: _Job) -> np.ndarray:
@@ -438,20 +532,48 @@ class ClusterRuntime:
                 [prompt, np.asarray(job.req.output[:-1], np.int32)])
         return prompt
 
+    def _compile_route(self, job: _Job) -> None:
+        """Compile the job's dataflow.  Disaggregated placements schedule a
+        pipeline per role and derive the KV handoffs bridging them (decode
+        layer l ships from the prefill stage that computed l, unless the
+        same node plays both parts and the KV is already home)."""
+        if not self.disaggregated:
+            pipe = self.scheduler.schedule()
+            job.route = Route(prefill=pipe, decode=pipe)
+            job.pipe = pipe
+            return
+        d = self.scheduler.schedule()
+        p = self.sched_prefill.schedule()
+        handoffs: Dict[int, List[Tuple[str, List[int]]]] = {}
+        for sd in d.stages:
+            for si, sp in enumerate(p.stages):
+                if sp.node == sd.node:
+                    continue            # mixed node: KV stays in its slot
+                common = [l for l in range(sd.layers.start, sd.layers.end)
+                          if sp.layers.start <= l < sp.layers.end]
+                if common:
+                    handoffs.setdefault(si, []).append((sd.node, common))
+        job.route = Route(prefill=p, decode=d, handoffs=handoffs)
+        job.pipe = d
+
     def _admit(self) -> bool:
         progressed = False
         while self.queue:
             job = self.queue[0]
-            if job.pipe is None:
+            if job.route is None:
                 try:
-                    job.pipe = self.scheduler.schedule()
+                    self._compile_route(job)
                 except RuntimeError:
-                    break               # no route: wait
+                    break               # no route (mid-replan): wait
             S = len(self._prefill_tokens(job))
             need = min(S + 1, self.ec.max_len)
+            # a slot on every node of the route, prefill nodes first (the
+            # order fixes the slot ids)
+            nodes = dict.fromkeys(st.node for st in (
+                *job.route.prefill.stages, *job.route.decode.stages))
             taken: List[Tuple[str, int]] = []
             ok = True
-            for node in dict.fromkeys(st.node for st in job.pipe.stages):
+            for node in nodes:
                 eng = self.engines.get(node)
                 slot = eng.alloc_slot(job.req.request_id) if eng else None
                 if slot is None or not eng.ensure(slot, need):
@@ -467,6 +589,9 @@ class ClusterRuntime:
             self.queue.popleft()
             job.slots = dict(taken)
             job.pos = S
+            job.kv_pending = {(si, dst)
+                              for si, hs in job.route.handoffs.items()
+                              for dst, _ in hs}
             # open the in-flight window: the first decode pass consumes the
             # last known token at position S and produces output index
             # ``next_j`` (a fresh request's prefill token is index 0)
@@ -496,17 +621,17 @@ class ClusterRuntime:
                 self._send_chunk(job, 0)
             else:
                 tokens = self._prefill_tokens(job)
-                self._send(COORDINATOR, job.pipe.stages[0].node, tokens,
-                           len(tokens) * self.profile.token_bytes,
+                self._send(COORDINATOR, job.route.prefill.stages[0].node,
+                           tokens, len(tokens) * self.profile.token_bytes,
                            self._hop(job, 0, None))
             progressed = True
         return progressed
 
     def _send_chunk(self, job: _Job, off: int) -> None:
-        """Send the prompt chunk starting at ``off`` to stage 0."""
+        """Send the prompt chunk starting at ``off`` to prefill stage 0."""
         tokens = self._prefill_tokens(job)
         chunk = tokens[off:off + max(1, self.ec.prompt_len)]
-        self._send(COORDINATOR, job.pipe.stages[0].node, chunk,
+        self._send(COORDINATOR, job.route.prefill.stages[0].node, chunk,
                    len(chunk) * self.profile.token_bytes,
                    self._hop(job, 0, off))
 
@@ -539,7 +664,7 @@ class ClusterRuntime:
 
     def _prefill_exec(self, job: _Job, epoch: int, si: int, x,
                       off: Optional[int]) -> None:
-        stages = job.pipe.stages
+        stages = job.route.prefill.stages
         st = stages[si]
         eng = self.engines[st.node]
         slot = job.slots[st.node]
@@ -557,7 +682,13 @@ class ClusterRuntime:
         if off is not None and si == 0 and off + n_tok < job.pos:
             # stage 0 freed: stream the next chunk in behind this one
             self._send_chunk(job, off + n_tok)
-        if last and (off is None or off + n_tok >= job.pos):
+        stage_done = off is None or off + n_tok >= job.pos
+        if stage_done:
+            # this stage's KV is complete: ship it to the decode node(s)
+            # that read these layers (disaggregated placements only)
+            for dst, lays in job.route.handoffs.get(si, []):
+                self._start_handoff(job, epoch, si, dst, lays)
+        if last and stage_done:
             # final chunk left the final stage: out is last-token logits
             if job.resumed:
                 tok = job.req.output[-1]      # sampled before eviction
@@ -570,6 +701,54 @@ class ClusterRuntime:
             # depth 1 always waits for the coordinator
             if self.max_inflight > 1:
                 self._maybe_launch(job, st.node, int(tok), job.next_j)
+
+    # -- KV handoff (disaggregated prefill -> decode) ------------------------
+    def _start_handoff(self, job: _Job, epoch: int, si: int, dst: str,
+                       layers: List[int]) -> None:
+        """Ship one prefill stage's filled KV (prompt tokens x ``layers``)
+        to a decode node; the decode launch stays gated on
+        ``kv_pending`` until it lands."""
+        st = job.route.prefill.stages[si]
+        payload = self.engines[st.node].export_kv(job.slots[st.node],
+                                                  job.pos, layers)
+        self._send(st.node, dst, payload, self._kv_bytes(job.pos,
+                                                         len(layers)),
+                   lambda p, jb=job, e=epoch, s=si, d=dst:
+                   self._finish_handoff(jb, e, s, d, p))
+
+    def _finish_handoff(self, job: _Job, epoch: int, si: int, dst: str,
+                        payload) -> None:
+        if job.epoch != epoch:
+            return
+        key = ("kv", si, dst)
+        if key in job.seen:
+            return                      # duplicated delivery
+        job.seen.add(key)
+        self.engines[dst].import_kv(job.slots[dst], job.pos, payload)
+        job.kv_pending.discard((si, dst))
+        self._maybe_release_prefill(job)
+        if not job.kv_pending and job.req.output:
+            # the first token may have confirmed while KV was in flight —
+            # its launch attempt was gated; relaunch now that decode can run
+            self._maybe_launch(job, COORDINATOR, int(job.req.output[-1]),
+                               len(job.req.output))
+            self._drain_inbox(job)
+
+    def _maybe_release_prefill(self, job: _Job) -> None:
+        """Free prefill-only nodes' slots (and KV) once every handoff out
+        of them has landed — long prompts stop holding prefill pools, which
+        is the point of disaggregating."""
+        if not job.route.disaggregated:
+            return
+        decode_nodes = {st.node for st in job.route.decode.stages}
+        pending_src = {job.route.prefill.stages[s].node
+                       for s, _ in job.kv_pending}
+        for st in job.route.prefill.stages:
+            if st.node in decode_nodes or st.node in pending_src:
+                continue
+            slot = job.slots.pop(st.node, None)
+            if slot is not None:
+                self.engines[st.node].release(slot)
 
     # -- token arrivals (coordinator) ----------------------------------------
     def _confirm(self, job: _Job, tok: int) -> None:
@@ -764,6 +943,8 @@ class ClusterRuntime:
             return                   # the final stage cannot draft
         if req.done or job.next_j != expect_j:
             return
+        if job.kv_pending:
+            return                   # decode KV still in flight from prefill
         if job.next_j >= req.max_new_tokens or job.next_pos >= self.ec.max_len:
             return                   # pass could never be confirmed
         if spec and job.inflight != 0:
@@ -890,7 +1071,9 @@ class ClusterRuntime:
     # -- completion / preemption ---------------------------------------------
     def _release_all(self, job: _Job) -> None:
         for node, slot in job.slots.items():
-            self.engines[node].release(slot)
+            eng = self.engines.get(node)
+            if eng is not None:          # None: the node failed
+                eng.release(slot)
         job.slots = {}
         if job.draft_slot is not None:
             self.draft.release(job.draft_slot)
@@ -917,15 +1100,93 @@ class ClusterRuntime:
 
     def _preempt(self, job: _Job) -> None:
         """Pool exhausted: evict pipeline-wide, keep generated tokens,
-        requeue at the front (recompute-on-readmit, same pipeline)."""
+        requeue at the front (recompute-on-readmit, same route)."""
+        self._requeue(job, clear_pipe=False)
+
+    # -- failover ------------------------------------------------------------
+    def fail_node(self, name: str) -> None:
+        """Drop a node's engine; every request whose route crossed it is
+        requeued (its KV on survivors released) pending a replanned
+        route."""
+        self.engines.pop(name, None)
+        for job in list(self.jobs.values()):
+            if name in job.route.nodes:
+                self._requeue(job, clear_pipe=True)
+        for job in self.queue:
+            if job.route is not None and name in job.route.nodes:
+                job.pipe = None
+                job.route = None
+
+    def _requeue(self, job: _Job, clear_pipe: bool) -> None:
         job.epoch += 1               # cancels every in-flight pass
         job.inbox = {}
+        job.kv_pending = set()       # readmission restarts any KV handoff
         self._release_all(job)
+        if clear_pipe:
+            job.pipe = None
+            job.route = None
         self.jobs.pop(job.req.request_id, None)
         job.req.preemptions += 1
         self.queue.appendleft(job)
 
+    def apply_plan(self, plan) -> None:
+        """Adopt a replanned placement: rebuild the engines whose slice
+        changed (requeueing their resident requests), swap IWRR weights in
+        place when the placement and its roles survived, else install
+        fresh role schedulers, and re-sync true pool occupancy into the KV
+        estimators."""
+        new_assign = plan.placement.assignment
+        for node in [n for n in self.engines if n not in new_assign]:
+            self.fail_node(node)
+        old_assign = self.placement.assignment
+        old_roles = (self.placement.meta or {}).get("roles")
+        # the new topology first: pool sizing reads node VRAM from
+        # self.cluster
+        self.cluster = plan.cluster
+        self.profile = plan.model
+        changed = set()
+        for node, rng in sorted(new_assign.items()):
+            if node in self.engines and old_assign.get(node) == rng:
+                continue
+            changed.add(node)
+            for job in list(self.jobs.values()):
+                if node in job.slots:
+                    self._requeue(job, clear_pipe=True)
+            self.engines[node] = self._make_engine(node, rng)
+        # queued jobs (preempted ones hold their old route) whose route
+        # crosses a rebuilt node would run stale layer ranges: reschedule
+        for job in self.queue:
+            if job.route is not None and \
+                    changed.intersection(job.route.nodes):
+                job.pipe = None
+                job.route = None
+        same = (old_assign == new_assign
+                and old_roles == (plan.placement.meta or {}).get("roles"))
+        self.placement = plan.placement
+        if same and not self.disaggregated and \
+                self.scheduler.placement.assignment == new_assign:
+            self.scheduler.update_weights(plan.flows)
+        else:
+            kv_old = self.scheduler.kv
+            kv_pre = self.sched_prefill.kv
+            self._build_role_schedulers(plan)
+            if self.scheduler.kv is not None and kv_old is not None:
+                self.scheduler.kv.high_water = kv_old.high_water
+            if self.sched_prefill is not self.scheduler and \
+                    self.sched_prefill.kv is not None and kv_pre is not None:
+                self.sched_prefill.kv.high_water = kv_pre.high_water
+        self._sync_kv(capacities=True)
+
     # -- introspection --------------------------------------------------------
+    def node_occupancy(self) -> Dict[str, float]:
+        """Per-node KV occupancy fraction (used tokens / capacity
+        tokens)."""
+        out = {}
+        for n, e in self.engines.items():
+            cap = e.kv_tokens_capacity()
+            out[n] = e.kv_tokens_used() / cap if cap else 0.0
+        return out
+
     def pool_pages_used(self) -> Dict[str, int]:
         """Allocated pages per paged node (dense nodes have no pool)."""
         return {n: u for n, e in self.engines.items()

@@ -26,10 +26,13 @@ them as position-ordered sub-batches, so a request's KV write history is
 that of ``n`` ordinary decode steps, and ``rollback`` forgets a rejected
 draft suffix.
 
+Disaggregated serving hands a prefill node's filled KV to a decode node:
+``export_kv(slot, tokens, layers)`` snapshots the slot's KV of the given
+global layers as a wire tree ``{layer: {...}}`` of device tensors, and
+``import_kv(slot, tokens, payload)`` scatters it into the receiving slot.
+
 Activations between stages stay device tensors; logits leave the device as
-float32 numpy rows for sampling.  Not ported yet: the KV handoff
-(``export_kv`` / ``import_kv``) of disaggregated serving (ROADMAP queue 1
-item 4).
+float32 numpy rows for sampling.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from ..configs.base import ModelConfig
 from ..core.placement import LayerRange
 from ..models.common import map_tree, resolve_device, torch_dtype
 from ..models.paged import all_blocks_paged
-from ..models.stage import (stage_cache_init, stage_decode,
+from ..models.stage import (stage_blocks, stage_cache_init, stage_decode,
                             stage_decode_paged, stage_num_paged_layers,
                             stage_params, stage_prefill,
                             stage_prefill_chunk_paged)
@@ -257,6 +260,7 @@ class StageEngine(_StageEngineBase):
                                        ec.max_len, device=self.device)
         self._active_tokens = np.zeros((ec.max_batch,), np.int64)
         self.prefills = 0          # prompt passes run on this node
+        self.decode_steps = 0      # batched decode passes run on this node
 
     @torch.no_grad()
     def prefill_stage(self, slot: int, x, entry: int):
@@ -289,6 +293,7 @@ class StageEngine(_StageEngineBase):
         rows = torch.from_numpy(idx).to(self.device)
         h, logits, _ = stage_decode(self.cfg, self.sparams, self.layers,
                                     tok, h_in, entry, self.caches, pos, rows)
+        self.decode_steps += 1
         for it in items:
             self._active_tokens[it.slot] = it.pos + 1
         return (h, logits.float().cpu().numpy()
@@ -311,6 +316,24 @@ class StageEngine(_StageEngineBase):
 
     def kv_tokens_capacity(self) -> int:
         return self.ec.max_batch * self.ec.max_len
+
+    # -- KV handoff (disaggregated prefill -> decode) --------------------
+    def export_kv(self, slot: int, tokens: int, layers: List[int]):
+        """Snapshot this slot's caches of the given *global* layers as a
+        wire tree ``{layer: {key: batchless tensor}}``: clones, so a
+        payload in flight survives the slot's release and reuse."""
+        want = set(layers)
+        return {l: {key: t[slot].clone() for key, t in c.items()}
+                for (l, _), c in zip(stage_blocks(self.cfg, self.layers),
+                                     self.caches) if l in want}
+
+    def import_kv(self, slot: int, tokens: int, payload) -> None:
+        """Splice a shipped snapshot into this slot's caches."""
+        for (l, _), c in zip(stage_blocks(self.cfg, self.layers),
+                             self.caches):
+            for key, a in payload.get(l, {}).items():
+                c[key][slot] = a.to(self.device, c[key].dtype)
+        self._active_tokens[slot] = tokens
 
 
 class PagedStageEngine(_StageEngineBase):
@@ -389,6 +412,46 @@ class PagedStageEngine(_StageEngineBase):
         if self.is_last:
             return out[0].float().cpu().numpy()
         return out
+
+    # -- KV handoff (disaggregated prefill -> decode) --------------------
+    def _page_ids(self, li: int, slot: int, tokens: int) -> torch.Tensor:
+        """Page ids of ``slot``'s first ``tokens`` rows in paged layer
+        ``li``, on the pool's device.  Every block of the slice is paged
+        (all-paged stacks only), so a block's position in the slice is its
+        row of the block table."""
+        nb = -(-tokens // self.pool.page)
+        return torch.from_numpy(self.pool.table[li, slot, :nb].astype(
+            np.int64)).to(self.device)
+
+    def export_kv(self, slot: int, tokens: int, layers: List[int]):
+        """Snapshot this slot's live pages of the given *global* layers as
+        a wire tree ``{layer: {"k", "v"}}`` of (blocks, page, kv heads,
+        head dim) tensors.  Indexing the pool by page id copies, so a
+        payload in flight survives the slot's release and the pages'
+        reuse."""
+        want = set(layers)
+        out = {}
+        for li, (l, _) in enumerate(stage_blocks(self.cfg, self.layers)):
+            if l in want:
+                pids = self._page_ids(li, slot, tokens)
+                out[l] = {"k": self.pool.k[pids], "v": self.pool.v[pids]}
+        return out
+
+    def import_kv(self, slot: int, tokens: int, payload) -> None:
+        """Scatter a shipped snapshot into this slot's pages.  The runtime
+        reserves the slot's blocks at admission; ``ensure`` here grows
+        nothing in the common case."""
+        pool = self.pool
+        if not pool.ensure(slot, tokens):
+            raise RuntimeError(f"import_kv: pool cannot hold {tokens} "
+                               f"tokens in slot {slot}")
+        for li, (l, _) in enumerate(stage_blocks(self.cfg, self.layers)):
+            p = payload.get(l)
+            if p is None:
+                continue
+            pids = self._page_ids(li, slot, tokens)
+            pool.k[pids] = p["k"].to(self.device, pool.k.dtype)
+            pool.v[pids] = p["v"].to(self.device, pool.v.dtype)
 
     # -- decode ----------------------------------------------------------
     @torch.no_grad()
