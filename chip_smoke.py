@@ -93,7 +93,10 @@ Phases (any failure raises and the script exits non-zero):
                 acceptance in f32 is printed), and phase 11's runs (a),
                 (c) and (e) with their plans cut to [0,4), [0,2) and
                 [2,4): equal greedy tokens, dense first-prefill logits
-                cuda vs cpu within 1e-3.
+                cuda vs cpu within 1e-3.  Then phase 12's runs (f), (h)
+                and (i)'s scale-up at 4 layers on cuda and on the CPU:
+                equal tokens, finish reasons, counters, link ledgers,
+                steps and autoscaler events.
   11. disaggregated serving — runs after phase 5's dense run, whose tokens
                 it reuses.  Plans of ``disaggregated_placement`` on a full
                 mesh of A100s at 1 ms and 10 Gb/s (the links phase 6
@@ -124,6 +127,34 @@ Phases (any failure raises and the script exits non-zero):
                 exported from n0, imported on n1 and re-exported from n1
                 is ``torch.equal``.  Prints each run's tokens/s (host
                 clock), virtual-clock mean TPOT and link ledger.
+  12. cancellation and live autoscaling — runs after phase 11, with
+                phase 5's weights and requests.  (f) phase 5's plan at
+                depth 2: request 1 cancelled right after its submit
+                (still queued), request 2 from another thread once it
+                has two confirmed tokens; (g) phase 6's perfect draft, γ
+                = 4, on the modelled links: request 0 cancelled with a
+                verify round in flight; (h) phase 11's plan (a) at depth
+                2: the first request with a KV handoff in flight
+                cancelled; (i) ``Autoscaler.tick()`` with ``traffic_fn``
+                and a catalog of A100s capped at 1000 tokens/s, loads
+                from ``ThroughputTable.profile`` (printed): scale-up of
+                phase 5's placement on two capped A100s under a load
+                step with requests in flight, then a second batch; drain
+                and retire of one of three full replicas at a low load
+                with requests on it, then a second batch; a straggler
+                reweight from fabricated telemetry.  Checks: cancelled
+                requests end "cancelled" with a prefix of phase 5's
+                tokens, the others with phase 5's; ``cancelled_requests``;
+                ``on_token`` saw exactly the confirmed tokens in order and
+                ``on_done`` fired once per request; pools drained, draft
+                slots free, ``pending()`` 0; the incumbents' ranges kept,
+                new engines on the card and decoding, $/hr up after the
+                scale-up and down after the retire, the straggler's
+                engines the same objects; K1 launches == decode passes x
+                paged layers over every engine that ran (the retired one
+                too), none split; K2 launches == the draft's prefills x
+                its layers, all tensor-core, or none.  Prints the
+                measured per-node decode telemetry as information.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
@@ -137,6 +168,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -153,11 +185,16 @@ from repro_torch.kernels.paged_attention import kernel as k1  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ref)
 from repro_torch.core import (LayerRange, MILPOptions,  # noqa: E402
-                              ModelProfile, disaggregated_placement,
-                              full_mesh_cluster, plan, replan_after_failure)
+                              ModelProfile, Placement,
+                              disaggregated_placement, full_mesh_cluster,
+                              plan, replan_after_failure)
+from repro_torch.core.cluster import DEVICE_PROFILES  # noqa: E402
+from repro_torch.core.mix_planner import (  # noqa: E402
+    Bucket, ThroughputTable, TrafficProfile, mix_is_feasible)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import init  # noqa: E402
 from repro_torch.models.common import map_tree  # noqa: E402
+from repro_torch.serving.autoscaler import Autoscaler  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
 from repro_torch.serving.runtime import (  # noqa: E402
     ClusterRuntime, InProcessTransport)
@@ -1002,14 +1039,18 @@ def disagg_plan(cfg, prefill, decode):
     placement = disaggregated_placement(
         {n: LayerRange(*r) for n, r in prefill.items()},
         {n: LayerRange(*r) for n, r in decode.items()}, cfg.num_layers)
-    profile = ModelProfile.from_dims(
-        cfg.name, cfg.num_layers, cfg.d_model, max(cfg.d_ff, 1),
-        cfg.vocab_size, cfg.num_kv_heads, cfg.resolved_head_dim,
-        kv_page_size=PAGE)
     cluster = full_mesh_cluster(len(placement.assignment),
                                 bandwidth=LINK_BYTES_PER_S,
                                 latency_s=LINK_DELAY_S)
-    return plan(cluster, profile, placement=placement)
+    return plan(cluster, model_profile(cfg), placement=placement)
+
+
+def model_profile(cfg):
+    """``cfg``'s analytic profile, with the port's KV page size."""
+    return ModelProfile.from_dims(
+        cfg.name, cfg.num_layers, cfg.d_model, max(cfg.d_ff, 1),
+        cfg.vocab_size, cfg.num_kv_heads, cfg.resolved_head_dim,
+        kv_page_size=PAGE)
 
 
 def disagg_layouts(L):
@@ -1279,6 +1320,502 @@ def disagg_serving_phase(cfg, params, ref_tokens, dense_tokens, base_lat,
     return out
 
 
+# ---------------------------------------------------------------------------
+# cancellation and live autoscaling
+# ---------------------------------------------------------------------------
+
+# the autoscaler's catalog: A100s whose token rate is capped at
+# AS_TOKEN_RATE (the reference test's ``_capped_a100``); the mix is solved
+# with AS_HEADROOM, and a load must hold AS_PATIENCE ticks
+AS_TOKEN_RATE = 1000.0
+AS_HEADROOM = 1.2
+AS_PATIENCE = 2
+# what the phase-10 cross-check holds equal between cuda and the CPU
+CANCEL_COUNTERS = ("cancelled_requests", "cancelled_inflight", "completed",
+                   "tokens_produced")
+# the straggler run's fabricated telemetry: n2 ten times slower
+STRAGGLER_SEED = ({"n0": 1.0, "n1": 1.0, "n2": 10.0},
+                  {"n0": 100, "n1": 100, "n2": 100})
+
+
+class Listeners:
+    """The ``on_token`` and ``on_done`` listeners of a run's requests."""
+
+    def __init__(self):
+        self.tokens, self.done = {}, []
+
+    def submit(self, rt, reqs):
+        for r in reqs:
+            self.tokens[r.request_id] = []
+            rt.submit(r, on_token=self.tokens[r.request_id].append,
+                      on_done=lambda rr: self.done.append(
+                          (rr.request_id, rr.finish_reason)))
+
+    def check(self, reqs, name):
+        """``on_token`` saw exactly each request's confirmed tokens, in
+        order; ``on_done`` fired once per request."""
+        require(all(self.tokens[r.request_id] == r.output for r in reqs),
+                f"({name}) on_token did not see the confirmed tokens")
+        require(sorted(self.done) ==
+                sorted((r.request_id, r.finish_reason) for r in reqs),
+                f"({name}) on_done calls {self.done}")
+
+
+def step_until(rt, pred, name, max_steps=10000):
+    """Step ``rt`` until ``pred()`` holds; returns the steps taken."""
+    for n in range(max_steps):
+        if pred():
+            return n
+        rt.step()
+    raise RuntimeError(f"chip_smoke check failed: ({name}) the state to "
+                       f"cancel in never came in {max_steps} steps")
+
+
+def cancel_from_thread(rt, rid):
+    th = threading.Thread(target=rt.cancel, args=(rid,))
+    th.start()
+    th.join(timeout=60)
+    require(not th.is_alive(), "the cancelling thread did not finish")
+
+
+def check_cancel_run(rt, reqs, lis, engines, cancelled, ref_tokens, name,
+                     device):
+    """A run with cancels: the cancelled requests end as "cancelled" with a
+    prefix of their reference tokens, the others with all of them; the
+    listeners, drained pools, free draft slots, ``pending() == 0``; on
+    ``DEVICE`` K1 launches == decode passes x paged layers over ``engines``
+    (none split), K2 launches == the draft's prefills x its layers (all
+    tensor-core) or none."""
+    for r in reqs:
+        want = ref_tokens[r.request_id % 100]
+        if r.request_id in cancelled:
+            require(r.finish_reason == "cancelled" and
+                    len(r.output) < len(want) and
+                    r.output == want[:len(r.output)],
+                    f"({name}) cancelled req{r.request_id}: "
+                    f"{r.finish_reason} {r.output}, reference {want}")
+        else:
+            require(r.finish_reason == "length" and r.output == want,
+                    f"({name}) req{r.request_id} {r.output} differs from "
+                    f"the reference's {want}")
+    require(rt.cancelled_requests == len(cancelled),
+            f"({name}) cancelled_requests {rt.cancelled_requests}")
+    lis.check(reqs, name)
+    check_drained(rt, name)
+    if rt.draft is not None:
+        require(rt.draft.free_slots == len(rt.draft.slots) and
+                rt.draft.kv_tokens_used() == 0,
+                f"({name}) draft slots not released")
+    require(rt.pending() == 0, f"({name}) pending() {rt.pending()}")
+    if device != DEVICE:
+        return                       # the cross-check's CPU run: no kernel
+    want = k1_expected(engines)
+    require(k1.launches == want > 0 and k1.split_launches == 0,
+            f"({name}) K1 {k1.launches} ({k1.split_launches} split), "
+            f"expected {want} (none split)")
+    dl = rt.draft.layers.num_layers if rt.draft is not None else 0
+    want2 = rt.draft.prefills * dl if rt.draft is not None else 0
+    require(k2.launches == want2 and k2.tc_launches == k2.launches,
+            f"({name}) K2 {k2.launches} ({k2.tc_launches} tensor-core), "
+            f"expected {want2}")
+
+
+def summary(rt, reqs, **extra):
+    """What the f32 cross-check holds equal between cuda and the CPU."""
+    return dict(tokens=[r.output for r in reqs],
+                reasons=[r.finish_reason for r in reqs],
+                counters={k: getattr(rt, k) for k in CANCEL_COUNTERS},
+                ledger=dict(rt.transport.transfers), **extra)
+
+
+def serving_args(device, *extra):
+    return serve.parse_args(SERVE_ARGV + ["--device", device, *extra])
+
+
+def cancel_paged_run(cfg, params, p, ref_tokens, device):
+    """(f) phase 5's plan and requests at depth 2: request 1 cancelled
+    right after its submit, still queued; request 2 cancelled from
+    another thread once it has two confirmed tokens."""
+    args = serving_args(device, "--max-inflight", "2")
+    rt = ClusterRuntime(cfg, params, p, serve.engine_config(args),
+                        page_size=args.page_size, max_inflight=2,
+                        device=device)
+    reqs, lis, st = serve.make_requests(cfg, args), Listeners(), {}
+
+    def run():
+        lis.submit(rt, reqs)
+        rt.cancel(1)
+        st["steps"] = step_until(rt, lambda: len(reqs[2].output) >= 2, "f")
+        st["before"] = len(reqs[2].output)
+        cancel_from_thread(rt, 2)
+        rt.run_until_done()
+    zero_counts()
+    dt = serve.timed(torch.device(device), run)
+    check_cancel_run(rt, reqs, lis, rt.engines.values(), {1, 2}, ref_tokens,
+                     "f cancel", device)
+    require(reqs[1].output == [], f"(f) the queued request decoded "
+                                  f"{reqs[1].output}")
+    return rt, reqs, dt, summary(rt, reqs, steps=st["steps"],
+                                 before=st["before"])
+
+
+def cancel_spec_run(cfg, params, p, ref_tokens, device):
+    """(g) phase 6's perfect draft, γ = 4, on modelled links: request 0
+    cancelled while a verify round is in flight."""
+    args = serve.parse_args(SPEC_ARGV + ["--device", device])
+    rt = ClusterRuntime(cfg, params, p, serve.engine_config(args),
+                        page_size=args.page_size, transport=link_model(),
+                        device=device, draft_cfg=cfg, draft_params=params,
+                        spec_tokens=args.spec_tokens)
+    reqs, lis, st = serve.make_requests(cfg, args), Listeners(), {}
+
+    def run():
+        lis.submit(rt, reqs)
+        st["steps"] = step_until(
+            rt, lambda: 0 in rt.jobs and rt.jobs[0].draft_slot is not None
+            and rt.jobs[0].inflight > 0 and rt.spec_rounds > 0, "g")
+        st["before"] = len(reqs[0].output)
+        rt.cancel(0)
+        rt.run_until_done()
+    zero_counts()
+    dt = serve.timed(torch.device(device), run)
+    check_cancel_run(rt, reqs, lis, rt.engines.values(), {0}, ref_tokens,
+                     "g cancel speculative", device)
+    return rt, reqs, dt, summary(rt, reqs, steps=st["steps"],
+                                 before=st["before"])
+
+
+def cancel_handoff_run(cfg, params, ref_tokens, device):
+    """(h) phase 11's plan (a) at depth 2: the first request with a KV
+    handoff in flight is cancelled while it holds slots on the prefill
+    node and the decode replica."""
+    args = serving_args(device, "--max-inflight", "2")
+    p = disagg_plan(cfg, *disagg_layouts(cfg.num_layers)[0])
+    rt = ClusterRuntime(cfg, params, p, serve.engine_config(args),
+                        page_size=args.page_size, max_inflight=2,
+                        transport=link_model(), device=device)
+    reqs, lis, st = serve.make_requests(cfg, args), Listeners(), {}
+
+    def run():
+        lis.submit(rt, reqs)
+        st["steps"] = step_until(
+            rt, lambda: any(j.kv_pending for j in rt.jobs.values()), "h")
+        victim = next(j for j in rt.jobs.values() if j.kv_pending)
+        st["victim"] = victim.req.request_id
+        st["held"] = sorted(victim.slots)
+        st["pending"] = sorted(victim.kv_pending)
+        rt.cancel(victim.req.request_id)
+        rt.run_until_done()
+    zero_counts()
+    dt = serve.timed(torch.device(device), run)
+    require("n0" in st["held"] and {"n1", "n2"} & set(st["held"]),
+            f"(h) the victim held slots on {st['held']} only")
+    check_cancel_run(rt, reqs, lis, rt.engines.values(), {st["victim"]},
+                     ref_tokens, "h cancel handoff", device)
+    return rt, reqs, dt, summary(rt, reqs, **st)
+
+
+def capped_a100(rate):
+    return dataclasses.replace(DEVICE_PROFILES["A100"],
+                               max_tokens_per_s=rate)
+
+
+def capped_plan(cfg, layout, dev):
+    """A plan of ``layout`` ({node: (start, end)}) on a full mesh of nodes
+    of device ``dev`` at 1 ms / 10 Gb/s."""
+    cluster = full_mesh_cluster(len(layout), bandwidth=LINK_BYTES_PER_S,
+                                latency_s=LINK_DELAY_S)
+    cluster = dataclasses.replace(cluster, nodes={
+        n: dataclasses.replace(spec, device=dev)
+        for n, spec in cluster.nodes.items()})
+    placement = Placement({n: LayerRange(*r) for n, r in layout.items()},
+                          cfg.num_layers)
+    return plan(cluster, model_profile(cfg), placement=placement)
+
+
+def autoscale_loads(cfg):
+    """The capped A100 and the phase's loads, from ``ThroughputTable.
+    profile`` on ``cfg``'s profile for phase 5's requests (one bucket of
+    40 prompt + 16 new tokens): ``base`` fits two nodes with the headroom
+    and leaves none to retire, ``step`` needs four, ``low`` leaves one of
+    three to retire.  Returns (device, {load: TrafficProfile}, node rate
+    in requests/s)."""
+    dev = capped_a100(AS_TOKEN_RATE)
+    args = serve.parse_args(SERVE_ARGV)
+    bucket = Bucket(int(args.prompt), args.new_tokens)
+    table = ThroughputTable.profile(model_profile(cfg), [bucket], ["A100"],
+                                    devices={"A100": dev})
+    node_rps = table.rates["A100"][0]
+    loads = {k: TrafficProfile(rate_rps=f * node_rps, buckets=[bucket],
+                               weights=[1.0])
+             for k, f in (("base", 1 / AS_HEADROOM), ("step", 3.0),
+                          ("low", 0.2))}
+
+    def fits(load, n):
+        return mix_is_feasible(table, dataclasses.replace(
+            loads[load], rate_rps=loads[load].rate_rps * AS_HEADROOM,
+            weights=[1.0]), {"A100": n})
+    require(fits("base", 2) and not fits("step", 2) and fits("step", 4)
+            and fits("low", 1), "the autoscaler's loads do not split the "
+                                "fleet as planned")
+    return dev, loads, node_rps
+
+
+def events(sc):
+    return [(e.t, e.kind, e.detail) for e in sc.events]
+
+
+def scale_up_run(cfg, params, ref_tokens, device):
+    """(i) scale-up: phase 5's 2-stage placement on two capped A100s at
+    depth 2, the baseline load for two ticks, phase 5's requests, six
+    steps, then the step load for ``AS_PATIENCE`` ticks: the grown plan
+    lands between steps; the requests in flight finish, then a second
+    batch through the grown fleet."""
+    dev, loads, _ = autoscale_loads(cfg)
+    L, h = cfg.num_layers, cfg.num_layers // 2
+    p = capped_plan(cfg, {"n0": (0, h), "n1": (h, L)}, dev)
+    args = serving_args(device, "--max-inflight", "2")
+    rt = ClusterRuntime(cfg, params, p, serve.engine_config(args),
+                        page_size=args.page_size, max_inflight=2,
+                        transport=link_model(), device=device)
+    load = {"t": loads["base"]}
+    sc = Autoscaler(rt, p, catalog={"A100": dev}, patience=AS_PATIENCE,
+                    headroom=AS_HEADROOM, traffic_fn=lambda: load["t"])
+    reqs = serve.make_requests(cfg, args)
+    batch2 = [dataclasses.replace(r, request_id=100 + r.request_id)
+              for r in serve.make_requests(cfg, args)]
+    lis, acts, st = Listeners(), [], {}
+
+    def run():
+        acts.extend(sc.tick() for _ in range(2))
+        lis.submit(rt, reqs)
+        for _ in range(6):
+            rt.step()
+        st["inflight"] = sorted(rt.jobs)
+        load["t"] = loads["step"]
+        acts.extend(sc.tick() for _ in range(AS_PATIENCE))
+        rt.step()                    # the queued apply_plan lands here
+        rt.run_until_done()
+        lis.submit(rt, batch2)
+        rt.run_until_done()
+    zero_counts()
+    dt = serve.timed(torch.device(device), run)
+    new = sorted(set(rt.engines) - {"n0", "n1"})
+    require(acts == [None, None] + [None] * (AS_PATIENCE - 1) + ["scale_up"]
+            and st["inflight"], f"(i) actions {acts}, in flight at the "
+                                f"load step {st['inflight']}")
+    require(new and all(n.startswith("a100-as") for n in new) and
+            all(rt.placement.assignment[n] == p.placement.assignment[n]
+                for n in ("n0", "n1")) and
+            rt.cluster.cost_per_hour() > p.cluster.cost_per_hour(),
+            f"(i) grown to {rt.placement.assignment}")
+    require(all(rt.engines[n].device.type == torch.device(device).type
+                for n in new), "(i) a new engine is not on the device")
+    require(sum(rt.engines[n].decode_steps for n in new) > 0,
+            "(i) no request decoded on the new nodes")
+    all_reqs = reqs + batch2
+    check_cancel_run(rt, all_reqs, lis, rt.engines.values(), set(),
+                     ref_tokens, "i scale-up", device)
+    grown = {n: (r.start, r.end) for n, r in rt.placement.assignment.items()}
+    return rt, sc, all_reqs, dt, summary(rt, all_reqs, events=events(sc),
+                                         placement=grown,
+                                         inflight=st["inflight"])
+
+
+def drain_retire_run(cfg, params, ref_tokens, device):
+    """(i) drain and retire: three full replicas on capped A100s at the
+    low load, phase 5's requests in flight; the drained node is retired
+    once the loop thread's probe finds it empty, then a second batch on
+    the survivors."""
+    dev, loads, _ = autoscale_loads(cfg)
+    L = cfg.num_layers
+    p = capped_plan(cfg, {n: (0, L) for n in ("n0", "n1", "n2")}, dev)
+    args = serving_args(device, "--max-inflight", "2")
+    rt = ClusterRuntime(cfg, params, p, serve.engine_config(args),
+                        page_size=args.page_size, max_inflight=2,
+                        transport=link_model(), device=device)
+    sc = Autoscaler(rt, p, catalog={"A100": dev}, patience=1,
+                    headroom=AS_HEADROOM, traffic_fn=lambda: loads["low"])
+    reqs = serve.make_requests(cfg, args)
+    batch2 = [dataclasses.replace(r, request_id=100 + r.request_id)
+              for r in serve.make_requests(cfg, args)]
+    lis, acts, st = Listeners(), [], {}
+    seen = dict.fromkeys(rt.engines.values())
+
+    def run():
+        lis.submit(rt, reqs)
+        for _ in range(4):
+            rt.step()
+        acts.append(sc.tick())
+        st["victim"] = sc._draining
+        st["busy"] = sorted(j.req.request_id for j in rt.jobs.values()
+                            if st["victim"] in j.slots)
+        for _ in range(10000):
+            rt.step()
+            act = sc.tick()
+            acts.append(act)
+            if act == "retire":
+                break
+        rt.step()                    # the plan without the victim lands
+        rt.run_until_done()
+        lis.submit(rt, batch2)
+        rt.run_until_done()
+    zero_counts()
+    cost = rt.cluster.cost_per_hour()
+    dt = serve.timed(torch.device(device), run)
+    victim = st["victim"]
+    require(acts[0] == "drain" and acts[-1] == "retire" and
+            all(a is None for a in acts[1:-1]) and victim is not None and
+            victim not in rt.engines and victim not in rt.cluster.nodes and
+            rt.cluster.cost_per_hour() < cost,
+            f"(i) drain/retire: actions {acts}, victim {victim}, engines "
+            f"{sorted(rt.engines)}")
+    all_reqs = reqs + batch2
+    check_cancel_run(rt, all_reqs, lis, seen, set(), ref_tokens,
+                     "i drain and retire", device)
+    return rt, sc, all_reqs, dt, dict(victim=victim, busy=st["busy"],
+                                      ticks=len(acts), cost=cost)
+
+
+def straggler_run(cfg, params, ref_tokens, device):
+    """(i) straggler: three full replicas, telemetry fabricated to show n2
+    ten times slower than the others; the reweight lands in place (the
+    same engine objects) and phase 5's requests keep their tokens."""
+    dev, _, _ = autoscale_loads(cfg)
+    L = cfg.num_layers
+    p = capped_plan(cfg, {n: (0, L) for n in ("n0", "n1", "n2")}, dev)
+    args = serving_args(device)
+    rt = ClusterRuntime(cfg, params, p, serve.engine_config(args),
+                        page_size=args.page_size, transport=link_model(),
+                        device=device)
+    sc = Autoscaler(rt, p, traffic_fn=lambda: None, patience=1,
+                    min_decode_tokens=1)
+    rt.node_decode_s.update(STRAGGLER_SEED[0])
+    rt.node_decode_tokens.update(STRAGGLER_SEED[1])
+    before = dict(rt.engines)
+    require(sc.tick() is None and
+            abs(sc._reweighted.get("n2", 1.0) - 0.1) < 1e-9,
+            f"(i) straggler: reweighted {sc._reweighted}")
+    reqs, lis = serve.make_requests(cfg, args), Listeners()
+
+    def run():
+        rt.step()                    # the reweighted plan lands here
+        lis.submit(rt, reqs)
+        rt.run_until_done()
+    zero_counts()
+    dt = serve.timed(torch.device(device), run)
+    require(rt.engines.keys() == before.keys() and
+            all(rt.engines[n] is e for n, e in before.items()),
+            "(i) straggler: engines were rebuilt")
+    check_cancel_run(rt, reqs, lis, rt.engines.values(), set(), ref_tokens,
+                     "i straggler", device)
+    return rt, sc, reqs, dt
+
+
+def telemetry(rt, fabricated=None):
+    """Per node: measured decode seconds, tokens and ms per token (the
+    fabricated seed of a straggler run taken out)."""
+    fab_s, fab_n = fabricated or ({}, {})
+    out = {}
+    for n in sorted(rt.node_decode_tokens):
+        s = rt.node_decode_s[n] - fab_s.get(n, 0.0)
+        k = rt.node_decode_tokens[n] - fab_n.get(n, 0)
+        out[n] = (round(s, 6), k, round(1e3 * s / k, 4) if k else None)
+    return out
+
+
+def cancel_autoscale_phase(cfg, params, ref_tokens, card):
+    """Phase 12, runs (f)-(i): see the module note.  Returns each run's
+    launch counts."""
+    args = serving_args(DEVICE)
+    p5 = serve.make_plan(cfg, args)
+    out = {}
+
+    def report(name, rt, reqs, dt, extra):
+        toks = sum(len(r.output) for r in reqs)
+        out[name] = dict(k1=k1.launches, k2=k2.launches,
+                         tokens_per_s=toks / dt)
+        print(f"  ({name}) {len(reqs)} requests, {toks} tokens in {dt:.4f} "
+              f"s = {toks / dt:.2f} tokens/s on {card} (host clock); "
+              f"cancelled_requests {rt.cancelled_requests}, "
+              f"cancelled_inflight {rt.cancelled_inflight}, completed "
+              f"{rt.completed}, tokens_produced {rt.tokens_produced}; K1 "
+              f"{k1.launches} = decode passes x paged layers, none split; "
+              f"K2 {k2.launches}{extra}")
+
+    rt, reqs, dt, s = cancel_paged_run(cfg, params, p5, ref_tokens, DEVICE)
+    report("f cancel", rt, reqs, dt, f"; req1 cancelled queued (0 tokens), "
+           f"req2 from another thread after {s['steps']} steps with "
+           f"{s['before']} tokens ({len(reqs[2].output)} confirmed in all); "
+           "reqs 0 and 3 equal to phase 5's")
+    rt, reqs, dt, s = cancel_spec_run(cfg, params, p5, ref_tokens, DEVICE)
+    report("g cancel speculative", rt, reqs, dt,
+           f" = {rt.draft.prefills} draft prefills x "
+           f"{rt.draft.layers.num_layers} layers, all tensor-core; req0 "
+           f"cancelled with a verify round in flight after {s['steps']} "
+           f"steps ({s['before']} tokens); {rt._spec_note()}; draft slots "
+           "free")
+    rt, reqs, dt, s = cancel_handoff_run(cfg, params, ref_tokens, DEVICE)
+    report("h cancel handoff", rt, reqs, dt,
+           f"; req{s['victim']} cancelled after {s['steps']} steps with "
+           f"handoffs {s['pending']} pending, slots on {s['held']}; pools "
+           f"of n0, n1 and n2 drained; {rt.transport.describe()}")
+
+    dev, loads, node_rps = autoscale_loads(cfg)
+    print(f"  (i) catalog: A100 capped at {dev.max_tokens_per_s:.0f} "
+          f"tokens/s = {node_rps:.4f} requests/s of the (40, 16) bucket "
+          f"per node (ThroughputTable.profile); loads (requests/s): "
+          + ", ".join(f"{k} {t.rate_rps:.4f}" for k, t in loads.items())
+          + f"; headroom {AS_HEADROOM}, patience {AS_PATIENCE}")
+    rt, sc, reqs, dt, s = scale_up_run(cfg, params, ref_tokens, DEVICE)
+    report("i scale-up", rt, reqs, dt,
+           f"; events {s['events']}; in flight at the step "
+           f"{s['inflight']}; grown to {s['placement']}, "
+           f"${rt.cluster.cost_per_hour():.2f}/hr; decode passes "
+           f"{({n: e.decode_steps for n, e in rt.engines.items()})}")
+    print(f"  (i scale-up) measured decode telemetry per node (s, tokens, "
+          f"ms/token; device synchronised): {telemetry(rt)}")
+    rt, sc, reqs, dt, s = drain_retire_run(cfg, params, ref_tokens, DEVICE)
+    report("i drain and retire", rt, reqs, dt,
+           f" over every engine that ran (the retired one too); "
+           f"{s['victim']} drained with requests {s['busy']} on it, retired "
+           f"after {s['ticks']} ticks: ${s['cost']:.2f} -> "
+           f"${rt.cluster.cost_per_hour():.2f}/hr; events {events(sc)}")
+    print(f"  (i drain and retire) measured decode telemetry per node: "
+          f"{telemetry(rt)}")
+    rt, sc, reqs, dt = straggler_run(cfg, params, ref_tokens, DEVICE)
+    report("i straggler", rt, reqs, dt,
+           f"; events {events(sc)}; same engine objects; flows "
+           + ", ".join(f"{k[0]}->{k[1]}={v:.1f}" for k, v in
+                       sorted(sc.plan.flows.items()) if k[0] == "coordinator"))
+    print(f"  (i straggler) measured decode telemetry per node (the "
+          f"fabricated seed taken out): {telemetry(rt, STRAGGLER_SEED)}")
+    return out
+
+
+def cancel_autoscale_cross_check(cfg4, params4):
+    """Phase 12's (f), (h) and (i)'s scale-up in f32 at 4 layers on cuda
+    and on the CPU: equal tokens, finish reasons, counters, link ledgers,
+    steps and autoscaler events."""
+    cpu_params = map_tree(lambda t: t.cpu(), params4)
+    p5 = serve.make_plan(cfg4, serving_args(DEVICE))
+    _, reqs, _, _ = serve.run_cluster(cfg4, serving_args(DEVICE), params4,
+                                      plan=p5, verbose=False)
+    ref = [r.output for r in reqs]
+    runs = {}
+    for dev, prm in ((DEVICE, params4), ("cpu", cpu_params)):
+        runs[dev] = {
+            "f": cancel_paged_run(cfg4, prm, p5, ref, dev)[3],
+            "h": cancel_handoff_run(cfg4, prm, ref, dev)[3],
+            "i": scale_up_run(cfg4, prm, ref, dev)[4]}
+    for name in ("f", "h", "i"):
+        a, b = runs[DEVICE][name], runs["cpu"][name]
+        print(f"  ({name}) cuda: {a}")
+        require(a == b, f"({name}) f32 cuda and cpu runs differ: cpu {b}")
+    print(f"  runs (f), (h) and (i) scale-up equal on cuda and the CPU: "
+          "tokens, finish reasons, counters, link ledgers, steps, events")
+
+
 # kernel names as the profiler shows them
 K_NAMES = {"K1": ("paged_attention_split_kernel",
                   "paged_attention_combine_kernel"),
@@ -1433,6 +1970,14 @@ def cross_check(cfg32, params32):
     print(f"  greedy tokens equal; worst logit gap {worst:.3e}")
 
 
+def xcheck_depth(cfg32, params32):
+    """The f32 model cut to ``DENSE_XCHECK_LAYERS`` layers at full
+    width."""
+    return (dataclasses.replace(cfg32, repeats=DENSE_XCHECK_LAYERS),
+            dict(params32, super=map_tree(lambda t: t[:DENSE_XCHECK_LAYERS],
+                                          params32["super"])))
+
+
 def dense_cross_check(cfg32, params32):
     """Full width at 4 layers, f32: on the card the dense cluster, the
     paged cluster, ``Engine``, ``PagedEngine``, the paged and dense
@@ -1440,9 +1985,7 @@ def dense_cross_check(cfg32, params32):
     draft (its own weights) give the same greedy tokens; the
     dense cluster's first-prefill logits on the card are within 1e-3 of
     the port's CPU run."""
-    cfg4 = dataclasses.replace(cfg32, repeats=DENSE_XCHECK_LAYERS)
-    params4 = dict(params32, super=map_tree(
-        lambda t: t[:DENSE_XCHECK_LAYERS], params32["super"]))
+    cfg4, params4 = xcheck_depth(cfg32, params32)
     (g, g_tok), (c, c_tok) = _xcheck_runs(cfg4, params4,
                                           DENSE_XCHECK_ARGV + ["--dense"])
     worst = _compare_logits(g, c, "prefill")
@@ -1634,6 +2177,11 @@ def main() -> int:
     disagg = disagg_serving_phase(cfg, params, paged_tokens, dense_tokens,
                                   links_lat, card)
 
+    phase("serving: cancellation and live autoscaling")
+    t0 = time.perf_counter()
+    cancel_as = cancel_autoscale_phase(cfg, params, paged_tokens, card)
+    print(f"  phase 12 took {time.perf_counter() - t0:.2f} s")
+
     phase("engines: Engine and PagedEngine")
     engine_k2, engine_k1 = engines_phase(cfg, params)
 
@@ -1656,6 +2204,10 @@ def main() -> int:
           "paths")
     dense_cross_check(cfg32, params32)
 
+    phase(f"cross-check f32, {DENSE_XCHECK_LAYERS} layers: cancellation and "
+          "autoscaling, cuda vs cpu")
+    cancel_autoscale_cross_check(*xcheck_depth(cfg32, params32))
+
     print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
           f"{dense_tok_s:.2f} tokens/s on {card}")
     main1, main2 = t1["decode"], t2["S511"]
@@ -1676,6 +2228,8 @@ def main() -> int:
          "spec_launches": {k: v["k1"] for k, v in spec.items()},
          "spec_split_launches": {k: v["k1_split"] for k, v in spec.items()},
          "disagg_launches": {k: v["k1"] for k, v in disagg.items()},
+         "cancel_autoscale_launches": {k: v["k1"]
+                                       for k, v in cancel_as.items()},
          "max_abs_err": k1_err, "worst_err_over_limit": k1_worst,
          "ms": main1["ms"], "plain_ms": main1["plain_ms"],
          "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
@@ -1693,6 +2247,8 @@ def main() -> int:
          "spec_launches": {k: v["k2"] for k, v in spec.items()},
          "spec_tc_launches": {k: v["k2_tc"] for k, v in spec.items()},
          "disagg_launches": {k: v["k2"] for k, v in disagg.items()},
+         "cancel_autoscale_launches": {k: v["k2"]
+                                       for k, v in cancel_as.items()},
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],

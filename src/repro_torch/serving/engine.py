@@ -47,7 +47,7 @@ class Request:
     temperature: float = 0.0
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    finish_reason: Optional[str] = None   # "stop" | "length" when done
+    finish_reason: Optional[str] = None   # "stop" | "length" | "cancelled"
     submitted_s: float = 0.0
     first_token_s: Optional[float] = None
     finished_s: Optional[float] = None

@@ -79,24 +79,40 @@ Scheduler feedback: after every iteration each node's true pool occupancy
 is written into its role scheduler's ``KVEstimator`` (``_sync_kv``), and
 real pool capacities are installed at startup and after ``apply_plan``.
 
+Ingest and cancellation: ``submit``, ``cancel`` and ``call_soon`` are
+thread-safe — each puts its item on one FIFO (``_ingest``) that only the
+loop thread drains, at the top of ``step``, so a cancel issued after its
+submit always finds the job, and the autoscaler's ``apply_plan`` lands
+between steps.  ``cancel`` tears a request down at any point of its life:
+the epoch bump kills its in-flight decode passes, verify rounds and KV
+handoffs on delivery, and its slots are released on every node and at the
+draft.  ``on_token`` listeners see each confirmed token in order,
+``on_done`` fires once.  ``node_decode_s`` / ``node_decode_tokens`` are
+each node's seconds inside decode passes and tokens through them (the
+autoscaler's straggler signal), read on a CUDA card after the pass has
+finished on the device.
+
 Not ported yet (the arguments raise; ROADMAP queue 1): int8 KV pools
-(item 1), cancellation and the autoscaler (item 5), the wall-clock
-(realtime) loop, socket transports, workers and worker-to-worker pushes
-(item 6), and models that are not all-paged (item 7).  Nor are the
-reference's guards against a transport that delivers a payload twice, but
-for the dense prefill's and the KV handoff's (item 6): the in-process
-transport delivers each payload once (it may reorder them: prefill chunks
-then wait for their predecessors, decode tokens in the coordinator's
-inbox).
+(item 1), the wall-clock (realtime) loop with its delivery mailbox, socket
+transports, workers and worker-to-worker pushes (item 6), and models that
+are not all-paged (item 7).  Nor are the reference's guards against a
+transport that delivers a payload twice, but for the dense prefill's and
+the KV handoff's (item 6): the in-process transport delivers each payload
+once (it may reorder them: prefill chunks then wait for their
+predecessors, decode tokens in the coordinator's inbox).
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
+import queue as _queue
+import threading
+import time
 from collections import defaultdict, deque
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..configs.base import ModelConfig
 from ..core.cluster import COORDINATOR
@@ -300,6 +316,16 @@ class ClusterRuntime:
         self._build_role_schedulers(plan)
         self.transport = transport or InProcessTransport()
         self.transport.bind(lambda d, fn: self._push(self._now + d, fn))
+        # submissions, cancels and call_soon thunks from any thread, in one
+        # FIFO that only the loop thread drains
+        self._ingest: "_queue.Queue" = _queue.Queue()
+        # jobs (not control messages) sitting in _ingest: qsize() would
+        # count cancels and thunks too
+        self._ingest_jobs = 0
+        self._ingest_lock = threading.Lock()
+        self._listeners: Dict[int, Tuple[Optional[Callable[[int], None]],
+                                         Optional[Callable[[Request], None]]]
+                              ] = {}
 
         # -- speculative decoding: coordinator-side draft model ----------
         self.spec_tokens = spec_tokens
@@ -343,9 +369,16 @@ class ClusterRuntime:
         self._now = 0.0
         self.tokens_produced = 0
         self.completed = 0
-        # in-flight passes cancelled by an early stop (eos/length) or a
-        # rejected verify round
+        # in-flight passes cancelled by an early stop (eos/length), a
+        # rejected verify round or a cancel
         self.cancelled_inflight = 0
+        # requests ended by ``cancel()``, their slots released everywhere
+        self.cancelled_requests = 0
+        # the autoscaler's straggler signal: seconds inside decode passes
+        # and tokens batched through them, per node (written on the loop
+        # thread; readers copy)
+        self.node_decode_s: Dict[str, float] = defaultdict(float)
+        self.node_decode_tokens: Dict[str, int] = defaultdict(int)
         # request_id -> the pipeline it was (last) served on
         self.served: Dict[int, Any] = {}
         # virtual-clock latency: first-token confirm time, and mean
@@ -437,9 +470,18 @@ class ClusterRuntime:
         timestamp is stamped from here."""
         return self._now
 
-    def submit(self, req: Request) -> None:
-        """Queue a request.  Raises ``ValueError`` for requests that could
-        never serve."""
+    def submit(self, req: Request, *,
+               on_token: Optional[Callable[[int], None]] = None,
+               on_done: Optional[Callable[[Request], None]] = None) -> None:
+        """Queue a request, from any thread: the job lands in the ingest
+        FIFO, which the loop thread drains into the admission deque at its
+        next step.  Raises ``ValueError`` for requests that could never
+        serve.
+
+        ``on_token`` fires on the loop thread once per token the
+        coordinator confirms, in output order (in-flight windows and verify
+        rounds never stream unconfirmed tokens); ``on_done`` fires once, at
+        completion or cancellation."""
         if len(req.prompt) == 0:
             raise ValueError("empty prompt")
         if len(req.prompt) > self.ec.max_len:
@@ -454,10 +496,81 @@ class ClusterRuntime:
                 "sampled acceptance would change the output distribution; "
                 "serve sampled requests on a runtime without a draft model")
         req.submitted_s = self.clock()
-        self.queue.append(_Job(req))
+        if on_token is not None or on_done is not None:
+            self._listeners[req.request_id] = (on_token, on_done)
+        with self._ingest_lock:
+            self._ingest_jobs += 1
+        self._ingest.put(_Job(req))
+
+    def cancel(self, request_id: int) -> None:
+        """Cancel a request, from any thread.  The cancel rides the ingest
+        FIFO behind its submit; the loop thread tears the request down in
+        ``_do_cancel``.  Unknown or finished ids are a no-op."""
+        self._ingest.put(("cancel", request_id))
+
+    def call_soon(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` on the loop thread at the next step: the door through
+        which the autoscaler applies ``apply_plan`` between steps."""
+        self._ingest.put(fn)
+
+    def pending(self) -> int:
+        """Requests accepted but not finished: ingest, admission queue and
+        live jobs.  Reads sizes and a lock-guarded counter only."""
+        with self._ingest_lock:
+            ingest = self._ingest_jobs
+        return ingest + len(self.queue) + len(self.jobs)
+
+    def _drain_ingest(self) -> None:
+        """Move submissions into the admission deque and run cancels and
+        ``call_soon`` thunks, in the order they were put (loop thread
+        only)."""
+        while True:
+            try:
+                item = self._ingest.get_nowait()
+            except _queue.Empty:
+                return
+            if isinstance(item, _Job):
+                with self._ingest_lock:
+                    self._ingest_jobs -= 1
+                self.queue.append(item)
+            elif isinstance(item, tuple) and item and item[0] == "cancel":
+                self._do_cancel(item[1])
+            else:
+                item()               # call_soon thunk
+
+    def _do_cancel(self, request_id: int) -> None:
+        """Tear down a queued or live request: the epoch bump kills every
+        delivery still addressed to it (decode tokens, activation hops,
+        verify results, KV handoffs), ``_release_all`` frees its slots on
+        every node and at the draft, and ``on_done`` fires once with
+        ``finish_reason="cancelled"``."""
+        job = self.jobs.pop(request_id, None)
+        if job is None:
+            job = next((q for q in self.queue
+                        if q.req.request_id == request_id), None)
+            if job is None:
+                return               # finished or never seen
+            self.queue.remove(job)
+        req = job.req
+        if req.done:
+            return
+        self.cancelled_inflight += max(0, job.inflight)
+        job.epoch += 1
+        job.inbox = {}
+        job.kv_pending = set()
+        self._release_all(job)
+        req.done = True
+        req.finish_reason = "cancelled"
+        req.finished_s = self.clock()
+        self._vfirst.pop(request_id, None)
+        self.cancelled_requests += 1
+        cb = self._listeners.pop(request_id, None)
+        if cb is not None and cb[1] is not None:
+            cb[1](req)
 
     def _idle(self) -> bool:
-        return not (self.queue or self.jobs or self._events or self._ready)
+        return not (self.queue or self.jobs or self._events or self._ready
+                    or self._ingest.qsize())
 
     def run_until_done(self, max_iters: int = 100000) -> None:
         for _ in range(max_iters):
@@ -479,15 +592,19 @@ class ClusterRuntime:
         windows = {j.req.request_id: f"{len(j.req.output)}+{j.inflight}"
                    for j in self.jobs.values()}
         ready = {n: len(v) for n, v in self._ready.items() if v}
-        return (f"queued={len(self.queue)} "
+        with self._ingest_lock:
+            ingest = self._ingest_jobs
+        return (f"queued={len(self.queue) + ingest} "
                 f"in_flight(confirmed+window)={windows} "
                 f"pending_events={len(self._events)} ready={ready} "
+                f"cancelled_requests={self.cancelled_requests} "
                 f"now={self._now:.6f} transport={self.transport.describe()}")
 
     def step(self) -> bool:
         """One runtime iteration: admit, drain deliveries due now, then one
         batched decode per node with resident stage-work.  Returns whether
         anything progressed."""
+        self._drain_ingest()
         progressed = self._admit()
         if self._events:
             self._now = max(self._now, self._events[0][0])
@@ -753,13 +870,18 @@ class ClusterRuntime:
     # -- token arrivals (coordinator) ----------------------------------------
     def _confirm(self, job: _Job, tok: int) -> None:
         """Confirm ONE token at the coordinator: append it to the visible
-        output and stamp the first-token time."""
+        output, stamp the first-token time and stream it to the request's
+        ``on_token`` listener.  Every confirmed token passes here, so
+        listeners see tokens in confirmation order."""
         req = job.req
         req.output.append(int(tok))
         self.tokens_produced += 1
         if req.first_token_s is None:
             req.first_token_s = self.clock()
         self._vfirst.setdefault(req.request_id, self._now)
+        cb = self._listeners.get(req.request_id)
+        if cb is not None and cb[0] is not None:
+            cb[0](int(tok))
 
     def _stop_reason(self, job: _Job) -> Optional[str]:
         req = job.req
@@ -1016,7 +1138,9 @@ class ClusterRuntime:
     def _decode_node(self, node: str, work: List[dict]) -> None:
         """All stage-work resident at ``node`` this iteration, run as
         batched decode passes of at most ``max_batch`` items."""
-        eng = self.engines[node]
+        eng = self.engines.get(node)
+        if eng is None:
+            return                   # the node failed or was retired
         # grow pools oldest-first, as a backstop: launch-time reservation
         # makes this a no-op unless another request raced the pool dry
         for w in sorted(work, key=lambda w: w["job"].seq):
@@ -1035,7 +1159,12 @@ class ClusterRuntime:
                                 .layers.start,
                                 token=w["tok"], h=w["h"], tokens=w["toks"])
                      for w in batch]
+            self._sync_device()
+            t_pass = time.monotonic()
             outs = eng.decode_stage(items)
+            self._sync_device()
+            self.node_decode_s[node] += time.monotonic() - t_pass
+            self.node_decode_tokens[node] += sum(w["nt"] for w in batch)
             for w, out in zip(batch, outs):
                 job, si, epoch, j = w["job"], w["si"], w["epoch"], w["j"]
                 if si == len(job.pipe.stages) - 1:
@@ -1068,6 +1197,16 @@ class ClusterRuntime:
                                self._enqueue_decode(jb, e, s, 0, h, p, jj,
                                                     spec=sp, nt=nn))
 
+    def _sync_device(self) -> None:
+        """Wait for the card.  On CUDA a non-final stage's ``decode_stage``
+        returns while its kernels are still queued (only the final stage
+        syncs, when it samples), so the straggler telemetry reads the
+        clock around a pass that has finished on the device: timed without
+        this, a node's seconds per token would be its launch time, not its
+        work.  On the CPU a pass has finished when it returns."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     # -- completion / preemption ---------------------------------------------
     def _release_all(self, job: _Job) -> None:
         for node, slot in job.slots.items():
@@ -1097,6 +1236,9 @@ class ClusterRuntime:
         self._release_all(job)
         self.jobs.pop(req.request_id, None)
         self.completed += 1
+        cb = self._listeners.pop(req.request_id, None)
+        if cb is not None and cb[1] is not None:
+            cb[1](req)
 
     def _preempt(self, job: _Job) -> None:
         """Pool exhausted: evict pipeline-wide, keep generated tokens,
