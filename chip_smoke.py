@@ -155,6 +155,34 @@ Phases (any failure raises and the script exits non-zero):
                 too), none split; K2 launches == the draft's prefills x
                 its layers, all tensor-core, or none.  Prints the
                 measured per-node decode telemetry as information.
+  13. stage workers, the wall clock and the front door — runs after phase
+                12, with phase 5's weights, plan and requests.  (j) the
+                paged cluster over two worker processes (``spawn_workers``,
+                direct links off, then on; each at depth 1, then 2):
+                requests one at a time — greedy tokens equal to the
+                in-process virtual-clock cluster's one-at-a-time run,
+                exactly, in bf16 — then together (all complete; the count
+                equal to phase 5's printed); every remote pool drains to 0,
+                checked over RPC.  (k) the dense cluster over workers (the
+                dense phase's plan and requests, K2 in the workers'
+                prefills), the same checks.  (l) a 2-stage pipeline beside
+                a full-model node over three workers: n1's worker SIGKILLed
+                once a request through it has its first token, then
+                ``fail_node``, ``replan_after_failure`` and ``apply_plan``;
+                the survivors' tokens equal (j)'s one-at-a-time tokens,
+                pools drain.  (m) ``Frontend`` over (j)'s workers and over
+                the realtime in-process runtime: request 0 streamed alone
+                equals (j)'s tokens, four concurrent streams complete, a
+                client reset mid-stream leaves ``cancelled_requests`` >= 1
+                and every pool 0 on ``/healthz``; prints wall-clock
+                TTFT/TPOT/E2E percentiles.  Launch counts: (j) and (k)
+                once more over workers on threads of this process
+                (``spawn_workers(connect=...)`` + ``run_worker``): K1 ==
+                decode RPCs x the node's layers (none split), K2 ==
+                dense prefill RPCs x layers (all tensor-core).  Prints the
+                params' bytes and each worker's init time.  Phase 10 then
+                repeats (j) and (l) in f32 at 4 layers over cuda workers:
+                tokens equal to the port's CPU in-process run.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
@@ -166,10 +194,13 @@ import itertools
 import json
 import os
 import re
+import socket
+import struct
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -192,14 +223,18 @@ from repro_torch.core.cluster import DEVICE_PROFILES  # noqa: E402
 from repro_torch.core.mix_planner import (  # noqa: E402
     Bucket, ThroughputTable, TrafficProfile, mix_is_feasible)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.worker import run_worker  # noqa: E402
 from repro_torch.models import init  # noqa: E402
 from repro_torch.models.common import map_tree  # noqa: E402
 from repro_torch.serving.autoscaler import Autoscaler  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
+from repro_torch.serving.frontend import Frontend  # noqa: E402
 from repro_torch.serving.runtime import (  # noqa: E402
     ClusterRuntime, InProcessTransport)
 from repro_torch.serving.stage_engine import (  # noqa: E402
     PagedStageEngine, StageEngine, _StageEngineBase)
+from repro_torch.serving.transport import (  # noqa: E402
+    RemoteStageEngine, WorkerChannel)
 
 K1_F32_TOL = dict(atol=1e-5, rtol=1e-5)   # the same fp32 math, other order
 # bf16 output: kernel and plain version both compute in fp32 and round once,
@@ -1816,6 +1851,536 @@ def cancel_autoscale_cross_check(cfg4, params4):
           "tokens, finish reasons, counters, link ledgers, steps, events")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: stage workers, the wall clock and the front door
+# ---------------------------------------------------------------------------
+
+WORKER_TIMEOUT_S = 300.0
+HTTP_TIMEOUT_S = 120.0
+
+
+def failover_layout(L):
+    """(l)'s placement over L layers: a 2-stage pipeline n0 -> n1 beside a
+    full-model node n2."""
+    return {"n0": (0, L // 2), "n1": (L // 2, L), "n2": (0, L)}
+
+
+def mesh_plan(cfg, layout):
+    """A plan of ``layout`` ({node: (start, end)}) on a full mesh of A100s
+    at 1 ms / 10 Gb/s."""
+    placement = Placement({n: LayerRange(*r) for n, r in layout.items()},
+                          cfg.num_layers)
+    cluster = full_mesh_cluster(len(layout), bandwidth=LINK_BYTES_PER_S,
+                                latency_s=LINK_DELAY_S)
+    return plan(cluster, model_profile(cfg), placement=placement)
+
+
+class RpcLog:
+    """While active, records every engine RPC the coordinator sends (node,
+    method, seconds) and every engine the runtime makes (node, seconds:
+    for a worker, the host copy of the params, the ``init`` RPC that ships
+    them and the engine built on the worker's device)."""
+
+    def __init__(self):
+        self.calls, self.makes = [], []
+
+    def __enter__(self):
+        self._orig = (WorkerChannel.call, ClusterRuntime._make_engine)
+        log = self
+        orig_call, orig_make = self._orig
+
+        def call(ch, method, *args):
+            t0 = time.perf_counter()
+            out = orig_call(ch, method, *args)
+            log.calls.append((ch.node, method, time.perf_counter() - t0))
+            return out
+
+        def make(rt, node, rng):
+            t0 = time.perf_counter()
+            out = orig_make(rt, node, rng)
+            log.makes.append((node, time.perf_counter() - t0))
+            return out
+
+        WorkerChannel.call = call
+        ClusterRuntime._make_engine = make
+        return self
+
+    def __exit__(self, *exc):
+        WorkerChannel.call, ClusterRuntime._make_engine = self._orig
+
+    def count(self, method):
+        out = {}
+        for node, m, _ in self.calls:
+            if m == method:
+                out[node] = out.get(node, 0) + 1
+        return out
+
+    def seconds(self, method):
+        return [s for _, m, s in self.calls if m == method]
+
+
+def param_bytes(params):
+    total = [0]
+    map_tree(lambda t: total.__setitem__(0, total[0] +
+                                         t.numel() * t.element_size()),
+             params)
+    return total[0]
+
+
+def worker_runtime(cfg, params, p, args, device, **kw):
+    """``spawn_workers`` on plan ``p`` with ``args``' engine config."""
+    return ClusterRuntime.spawn_workers(
+        cfg, params, p, serve.engine_config(args), paged=not args.dense,
+        page_size=args.page_size, max_inflight=args.max_inflight,
+        device=device, stall_timeout_s=120.0,
+        worker_timeout_s=WORKER_TIMEOUT_S, **kw)
+
+
+def fresh_requests(cfg, args, base):
+    """``args``' requests with ids from ``base`` (a runtime serves several
+    batches)."""
+    return [dataclasses.replace(r, request_id=base + r.request_id)
+            for r in serve.make_requests(cfg, args)]
+
+
+def one_at_a_time(rt, reqs):
+    """Each request submitted after the previous one finished: every
+    decode batch holds one row."""
+    for r in reqs:
+        rt.submit(r)
+        rt.run_until_done()
+    return [r.output for r in reqs]
+
+
+def together(rt, reqs):
+    for r in reqs:
+        rt.submit(r)
+    rt.run_until_done()
+    return [r.output for r in reqs]
+
+
+def check_remote_drained(rt, name):
+    """Every worker's pool (paged) and KV rows (dense) empty, asked over
+    RPC; nothing pending."""
+    used = rt.pool_pages_used()
+    held = {n: t for n, e in rt.engines.items()
+            if (t := e.kv_tokens_used())}
+    require(all(u == 0 for u in used.values()) and not held and
+            rt.pending() == 0,
+            f"({name}) remote pages {used} or KV tokens {held} not "
+            f"released, pending {rt.pending()}")
+    return used
+
+
+def check_done(reqs, n, name):
+    require(all(r.done and len(r.output) == n for r in reqs),
+            f"({name}) not every request finished with {n} tokens: "
+            f"{[len(r.output) for r in reqs]}")
+
+
+def agreeing(toks, ref):
+    return sum(a == b for a, b in zip(toks, ref))
+
+
+def solo_inprocess(cfg, params, p, args, device):
+    """The in-process virtual-clock cluster on ``p``, one request at a
+    time: (tokens, host seconds)."""
+    rt = ClusterRuntime(cfg, params, p, serve.engine_config(args),
+                        paged=not args.dense, page_size=args.page_size,
+                        max_inflight=args.max_inflight, device=device)
+    reqs = serve.make_requests(cfg, args)
+    t0 = time.perf_counter()
+    toks = one_at_a_time(rt, reqs)
+    return toks, time.perf_counter() - t0
+
+
+def worker_runs(cfg, params, p, args, solo, batched, device, name, *,
+                direct, keep=False):
+    """One ``spawn_workers`` runtime on ``p`` at depth 1, then depth 2 (set
+    between runs, nothing in flight): each depth serves ``args``' requests
+    one at a time (tokens must equal ``solo``, the in-process one-at-a-time
+    run) and then together (all complete; the count equal to ``batched``
+    is reported).  Remote pools drain after every run.  Returns (runtime if
+    ``keep`` else None, report lines, seconds by part, the together runs'
+    tokens by depth)."""
+    lines, secs, batch = [], {}, {}
+    t0 = time.perf_counter()
+    rt = worker_runtime(cfg, params, p, args, device,
+                        direct_links=direct)
+    secs["spawn"] = time.perf_counter() - t0
+    try:
+        require(all(isinstance(e, RemoteStageEngine)
+                    for e in rt.engines.values()),
+                f"({name}) engines not remote")
+        base = 0
+        for depth in (1, 2):
+            rt.max_inflight = depth
+            t0 = time.perf_counter()
+            reqs = fresh_requests(cfg, args, base)
+            toks = one_at_a_time(rt, reqs)
+            secs[f"solo d{depth}"] = time.perf_counter() - t0
+            check_done(reqs, args.new_tokens, name)
+            require(toks == solo, f"({name}, depth {depth}) one-at-a-time "
+                                  f"tokens {toks} differ from the "
+                                  f"in-process run's {solo}")
+            check_remote_drained(rt, name)
+            t0 = time.perf_counter()
+            reqs = fresh_requests(cfg, args, base + 100)
+            toks = batch[depth] = together(rt, reqs)
+            secs[f"together d{depth}"] = time.perf_counter() - t0
+            check_done(reqs, args.new_tokens, name)
+            used = check_remote_drained(rt, name)
+            lines.append(
+                f"depth {depth}: one at a time equal to the in-process "
+                f"run ({secs[f'solo d{depth}']:.2f} s); together "
+                f"{secs[f'together d{depth}']:.2f} s, "
+                f"{sum(len(t) for t in toks)} tokens, "
+                f"{agreeing(toks, batched)} of {len(toks)} requests' "
+                f"tokens equal to the batched in-process run's; remote "
+                f"pools {used}")
+            base += 1000
+        lines.append(rt.transport.describe())
+    except BaseException:
+        rt.shutdown()
+        raise
+    if keep:
+        return rt, lines, secs, batch
+    rt.shutdown()
+    return None, lines, secs, batch
+
+
+def kill_run(cfg, params, args, solo, device):
+    """(l) ``failover_layout`` over three workers, depth 1, ``args``'
+    requests together: once a request routed through n1 has its first
+    token (a decode pass in flight), SIGKILL n1's worker, ``fail_node``,
+    ``replan_after_failure`` and ``apply_plan``; the survivors finish with
+    ``solo``'s tokens and every remote pool drains."""
+    p = mesh_plan(cfg, failover_layout(cfg.num_layers))
+    rt = worker_runtime(cfg, params, p, args, device)
+    try:
+        reqs = fresh_requests(cfg, args, 0)
+        for r in reqs:
+            rt.submit(r)
+        for _ in range(100000):
+            hit = [j for j in rt.jobs.values()
+                   if "n1" in j.route.nodes and j.req.output]
+            if hit:
+                break
+            if not rt.step():
+                require(rt._await_delivery(120.0), "(l) runtime stalled")
+        require(hit, "(l) no request through n1 decoded")
+        before = [len(r.output) for r in reqs]
+        rt.kill_worker("n1")
+        rt.fail_node("n1")
+        new = replan_after_failure(p, "n1", MILPOptions(
+            time_limit_s=5.0, lns_rounds=0, fgls_rounds=10))
+        rt.apply_plan(new)
+        rt.run_until_done()
+        check_done(reqs, args.new_tokens, "l")
+        toks = [r.output for r in reqs]
+        require(toks == solo, f"(l) tokens after the kill {toks} differ "
+                              f"from the one-at-a-time run's {solo}")
+        require("n1" not in rt.engines and "n1" not in rt.workers and
+                sum(r.preemptions for r in reqs) > 0,
+                f"(l) engines {sorted(rt.engines)}, workers "
+                f"{sorted(rt.workers)}, preemptions "
+                f"{[r.preemptions for r in reqs]}")
+        used = check_remote_drained(rt, "l")
+        return (f"killed n1 with tokens {before} confirmed "
+                f"({[r.preemptions for r in reqs]} preemptions), replanned "
+                "to " + ", ".join(f"{n}=[{r.start},{r.end})" for n, r in
+                                  sorted(new.placement.assignment.items()))
+                + f"; tokens equal to the one-at-a-time run's; remote "
+                f"pools {used}")
+    finally:
+        rt.shutdown()
+
+
+def http_stream(url, body):
+    """POST a streaming completion: (token ids, finish reason)."""
+    req = urllib.request.Request(
+        url + "/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    toks, finish = [], None
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as resp:
+        for raw in resp:
+            line = raw.strip()
+            if line == b"data: [DONE]":
+                break
+            if line.startswith(b"data: "):
+                c = json.loads(line[6:])["choices"][0]
+                if c.get("token_id") is not None:
+                    toks.append(c["token_id"])
+                finish = c.get("finish_reason") or finish
+    return toks, finish
+
+
+def http_get(url, path):
+    with urllib.request.urlopen(url + path, timeout=HTTP_TIMEOUT_S) as r:
+        return json.load(r)
+
+
+def wait_for(pred, name, timeout_s=HTTP_TIMEOUT_S):
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        require(time.monotonic() < deadline, f"({name}) timed out")
+        time.sleep(0.01)
+
+
+def disconnect_mid_stream(host, port, prompt):
+    """A raw client that reads two SSE chunks of a long stream, then
+    resets its socket."""
+    body = json.dumps({"prompt": prompt, "max_tokens": 48,
+                       "stream": True}).encode()
+    s = socket.create_connection((host, port), timeout=HTTP_TIMEOUT_S)
+    try:
+        s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+                  b"Content-Type: application/json\r\n" +
+                  f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        buf = b""
+        while buf.count(b"data: ") < 2:
+            chunk = s.recv(4096)
+            require(chunk, "the server closed the stream early")
+            buf += chunk
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                     struct.pack("ii", 1, 0))       # RST on close
+    finally:
+        s.close()
+
+
+def front_door_run(rt, cfg, args, solo, batched, name):
+    """(m) ``Frontend`` over ``rt``: request 0 streamed alone (tokens equal
+    ``solo[0]``), then all of ``args``' requests as concurrent streams
+    (all complete; the count equal to ``batched`` reported), then a client
+    that disconnects mid-stream (``cancelled_requests`` >= 1, every pool 0
+    on ``/healthz``).  Returns the report line and ``summarize``'s
+    summary."""
+    fe = Frontend(rt, max_pending=16)
+    host, port = fe.serve("127.0.0.1", 0)
+    url = f"http://{host}:{port}"
+    try:
+        prompts = [[int(t) for t in r.prompt]
+                   for r in serve.make_requests(cfg, args)]
+        toks, finish = http_stream(url, {"prompt": prompts[0],
+                                         "max_tokens": args.new_tokens,
+                                         "stream": True})
+        require(toks == solo[0] and finish == "length",
+                f"({name}) streamed {toks} ({finish}), one-at-a-time run "
+                f"{solo[0]}")
+        res = [None] * len(prompts)
+
+        def fire(i):
+            res[i] = http_stream(url, {"prompt": prompts[i],
+                                       "max_tokens": args.new_tokens,
+                                       "stream": True})
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=HTTP_TIMEOUT_S)
+        require(all(r is not None and len(r[0]) == args.new_tokens and
+                    r[1] == "length" for r in res),
+                f"({name}) concurrent streams {res}")
+        same = agreeing([r[0] for r in res], batched)
+        disconnect_mid_stream(host, port, prompts[1])
+        wait_for(lambda: rt.cancelled_requests >= 1 and rt.pending() == 0,
+                 name)
+        h = http_get(url, "/healthz")
+        require(h["cancelled_requests"] >= 1 and h["pending"] == 0 and
+                all(v == 0 for v in h["pool_pages_used"].values()),
+                f"({name}) /healthz after the disconnect: cancelled "
+                f"{h['cancelled_requests']}, pending {h['pending']}, pools "
+                f"{h['pool_pages_used']}")
+        summary = fe.summary()
+    finally:
+        fe.shutdown(drain=True, timeout_s=HTTP_TIMEOUT_S)
+    require(fe.loop_error is None, f"({name}) loop died: {fe.loop_error!r}")
+    return (f"stream of request 0 equal to the one-at-a-time run's; "
+            f"{len(prompts)} concurrent streams, {same} equal to the "
+            f"batched run's; a client reset mid-stream: cancelled_requests "
+            f"{h['cancelled_requests']}, pools {h['pool_pages_used']} on "
+            "/healthz"), summary
+
+
+def fmt_ms(d):
+    return "/".join(f"{1e3 * d[k]:.2f}" for k in ("p50", "p95", "p99"))
+
+
+def thread_workers(n, port, device):
+    """``n`` workers dialing ``127.0.0.1:port`` through ``run_worker`` (the
+    module's entry point) on threads of this process, so their kernel
+    launches count here; each retries until the coordinator listens."""
+    errors = []
+
+    def work():
+        for _ in range(1200):
+            try:
+                run_worker("127.0.0.1", port, timeout_s=WORKER_TIMEOUT_S,
+                           device=device)
+                return
+            except ConnectionRefusedError:
+                time.sleep(0.05)
+            except BaseException as e:
+                errors.append(e)
+                return
+        errors.append(RuntimeError("never reached the coordinator"))
+
+    threads = [threading.Thread(target=work, daemon=True) for _ in range(n)]
+    for t in threads:
+        t.start()
+    return threads, errors
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def counted_run(cfg, params, p, args, device, name):
+    """(j) or (k) once more over workers on threads of this process
+    (``spawn_workers(connect=...)``), the requests together at depth 1
+    over direct links: K1 and K2 launches against the RPCs that ran
+    them."""
+    port = free_port()
+    threads, errors = thread_workers(len(p.placement.assignment), port,
+                                     device)
+    rt = worker_runtime(cfg, params, p, args, device, direct_links=True,
+                        connect=f"127.0.0.1:{port}")
+    try:
+        reqs = fresh_requests(cfg, args, 0)
+        with RpcLog() as log:
+            zero_counts()
+            t0 = time.perf_counter()
+            together(rt, reqs)
+            dt = time.perf_counter() - t0
+            got = dict(k1=k1.launches, k1_split=k1.split_launches,
+                       k2=k2.launches, k2_tc=k2.tc_launches)
+        check_done(reqs, args.new_tokens, name)
+        check_remote_drained(rt, name)
+        layers = {n: r.num_layers for n, r in p.placement.assignment.items()}
+        dec = log.count("decode_stage")
+        pre = log.count("prefill_stage")
+        want_k1 = 0 if args.dense else sum(dec[n] * layers[n] for n in dec)
+        want_k2 = sum(pre.get(n, 0) * layers[n] for n in layers)
+        require(got["k1"] == want_k1 and got["k1_split"] == 0 and
+                got["k2"] == want_k2 and got["k2_tc"] == got["k2"] and
+                (got["k1"] if not args.dense else got["k2"]) > 0,
+                f"({name}) launches {got}, expected K1 {want_k1} (decode "
+                f"RPCs {dec} x layers {layers}), K2 {want_k2} (prefill "
+                f"RPCs {pre})")
+    finally:
+        rt.shutdown()
+        for t in threads:
+            t.join(timeout=60)
+    require(not errors and not any(t.is_alive() for t in threads),
+            f"({name}) thread workers: {errors}")
+    toks = sum(len(r.output) for r in reqs)
+    k1_note = ("none in dense decode" if args.dense else
+               f"= decode RPCs {dec} x layers {layers}, none split")
+    k2_note = (f"= prefill RPCs {pre} x layers, all tensor-core"
+               if args.dense else "none: chunked paged prefill")
+    print(f"  ({name}, workers on threads, together, depth 1, direct "
+          f"links) {toks} tokens in {dt:.4f} s; K1 {got['k1']} {k1_note}; "
+          f"K2 {got['k2']} {k2_note}")
+    return got
+
+
+def workers_phase(cfg, params, paged_tokens, dense_tokens, card):
+    """Phase 13, runs (j)-(m): see the module note.  Returns the phase's
+    launch counts."""
+    args = serving_args(DEVICE)
+    p5 = serve.make_plan(cfg, args)
+    solo, s1 = solo_inprocess(cfg, params, p5, args, DEVICE)
+    solo2, s2 = solo_inprocess(cfg, params, p5, serving_args(
+        DEVICE, "--max-inflight", "2"), DEVICE)
+    require(solo == solo2, "in-process one-at-a-time runs differ by depth")
+    print(f"  in-process virtual clock, one request at a time: {s1:.2f} s "
+          f"at depth 1, {s2:.2f} s at depth 2 (host clock); "
+          f"{agreeing(solo, paged_tokens)} of {len(solo)} requests' bf16 "
+          "tokens equal to phase 5's batched run")
+    print(f"  params shipped at each init: "
+          f"{param_bytes(params) / 1e9:.3f} GB ({cfg.param_dtype})")
+    kept = None
+    for direct in (False, True):
+        with RpcLog() as log:
+            rt, lines, secs, _ = worker_runs(
+                cfg, params, p5, args, solo, paged_tokens, DEVICE,
+                "j", direct=direct, keep=direct)
+        kept = rt or kept
+        inits = log.seconds("init")
+        makes = [s for _, s in log.makes]
+        print(f"  (j) paged over 2 workers, direct_links={direct}: spawn "
+              f"{secs['spawn']:.2f} s (init RPCs "
+              + ", ".join(f"{s:.2f}" for s in inits) + " s; engines made "
+              "in " + ", ".join(f"{s:.2f}" for s in makes) + " s)")
+        for line in lines:
+            print(f"      {line}")
+    try:
+        t0 = time.perf_counter()
+        line, summ = front_door_run(kept, cfg, args, solo, paged_tokens,
+                                    "m workers")
+        print(f"  (m) front door over (j)'s workers "
+              f"({time.perf_counter() - t0:.2f} s): {line}")
+        print(f"      wall clock TTFT p50/p95/p99 {fmt_ms(summ['ttft_s'])} "
+              f"ms, TPOT {fmt_ms(summ['tpot_s'])} ms, E2E "
+              f"{fmt_ms(summ['e2e_s'])} ms over {summ['requests']} "
+              f"requests on {card}")
+    finally:
+        kept.shutdown()
+    rt = ClusterRuntime(cfg, params, p5, serve.engine_config(args),
+                        page_size=args.page_size, max_inflight=2,
+                        realtime=True, device=DEVICE)
+    t0 = time.perf_counter()
+    line, summ = front_door_run(rt, cfg, args, solo, paged_tokens,
+                                "m in-process")
+    print(f"  (m) front door over the realtime in-process runtime "
+          f"({time.perf_counter() - t0:.2f} s): {line}")
+    print(f"      wall clock TTFT p50/p95/p99 {fmt_ms(summ['ttft_s'])} ms, "
+          f"TPOT {fmt_ms(summ['tpot_s'])} ms, E2E {fmt_ms(summ['e2e_s'])} "
+          f"ms over {summ['requests']} requests on {card}")
+
+    dargs = serve.parse_args(DENSE_ARGV + ["--device", DEVICE])
+    pd = serve.make_plan(cfg, dargs)
+    dsolo, ds = solo_inprocess(cfg, params, pd, dargs, DEVICE)
+    _, lines, secs, _ = worker_runs(cfg, params, pd, dargs, dsolo,
+                                    dense_tokens, DEVICE, "k", direct=True)
+    print(f"  (k) dense over 2 workers, direct links: spawn "
+          f"{secs['spawn']:.2f} s; in-process one at a time ({ds:.2f} s "
+          f"at depth 1): {agreeing(dsolo, dense_tokens)} of {len(dsolo)} "
+          "equal to the dense phase's")
+    for line in lines:
+        print(f"      {line}")
+
+    t0 = time.perf_counter()
+    print(f"  (l) {kill_run(cfg, params, args, solo, DEVICE)} "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+    return {"j paged over workers": counted_run(cfg, params, p5, args,
+                                                DEVICE, "j"),
+            "k dense over workers": counted_run(cfg, params, pd, dargs,
+                                                DEVICE, "k")}
+
+
+def workers_cross_check(cfg4, params4):
+    """(j) and (l) in f32 at 4 layers over CUDA workers against the port's
+    CPU in-process run: equal tokens."""
+    cpu_params = map_tree(lambda t: t.cpu(), params4)
+    args = serving_args(DEVICE)
+    p = serve.make_plan(cfg4, args)
+    ref, _ = solo_inprocess(cfg4, cpu_params, p, serving_args("cpu"),
+                            "cpu")
+    _, _, _, batch = worker_runs(cfg4, params4, p, args, ref, ref, DEVICE,
+                                 "j f32", direct=True)
+    require(all(t == ref for t in batch.values()),
+            f"(j f32) batched tokens {batch} differ from the CPU run's "
+            f"{ref}")
+    print(f"  (j) over cuda workers, one at a time and together at depths "
+          f"1 and 2: tokens equal to the CPU in-process run's {ref}")
+    print(f"  (l) {kill_run(cfg4, params4, args, ref, DEVICE)}")
+
+
 # kernel names as the profiler shows them
 K_NAMES = {"K1": ("paged_attention_split_kernel",
                   "paged_attention_combine_kernel"),
@@ -2182,6 +2747,11 @@ def main() -> int:
     cancel_as = cancel_autoscale_phase(cfg, params, paged_tokens, card)
     print(f"  phase 12 took {time.perf_counter() - t0:.2f} s")
 
+    phase("serving: stage workers, wall clock and front door")
+    t0 = time.perf_counter()
+    workers = workers_phase(cfg, params, paged_tokens, dense_tokens, card)
+    print(f"  phase 13 took {time.perf_counter() - t0:.2f} s")
+
     phase("engines: Engine and PagedEngine")
     engine_k2, engine_k1 = engines_phase(cfg, params)
 
@@ -2208,6 +2778,12 @@ def main() -> int:
           "autoscaling, cuda vs cpu")
     cancel_autoscale_cross_check(*xcheck_depth(cfg32, params32))
 
+    phase(f"cross-check f32, {DENSE_XCHECK_LAYERS} layers: workers on cuda "
+          "vs the CPU in-process run")
+    t0 = time.perf_counter()
+    workers_cross_check(*xcheck_depth(cfg32, params32))
+    print(f"  took {time.perf_counter() - t0:.2f} s")
+
     print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
           f"{dense_tok_s:.2f} tokens/s on {card}")
     main1, main2 = t1["decode"], t2["S511"]
@@ -2230,6 +2806,7 @@ def main() -> int:
          "disagg_launches": {k: v["k1"] for k, v in disagg.items()},
          "cancel_autoscale_launches": {k: v["k1"]
                                        for k, v in cancel_as.items()},
+         "workers_launches": {k: v["k1"] for k, v in workers.items()},
          "max_abs_err": k1_err, "worst_err_over_limit": k1_worst,
          "ms": main1["ms"], "plain_ms": main1["plain_ms"],
          "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
@@ -2249,6 +2826,7 @@ def main() -> int:
          "disagg_launches": {k: v["k2"] for k, v in disagg.items()},
          "cancel_autoscale_launches": {k: v["k2"]
                                        for k, v in cancel_as.items()},
+         "workers_launches": {k: v["k2"] for k, v in workers.items()},
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],

@@ -31,17 +31,36 @@ target's width: SMOKE with ``--smoke``; weights from ``--seed``, so
       --cluster A100,L4 --stages 2 --prompt 40 --new-tokens 16 \
       --draft smollm_360m --spec-tokens 4
 
+Multi-process cluster serving: one stage worker process per node behind
+the ``SocketTransport`` (``--transport socket``; ``--direct-links`` lets
+workers forward activations to the next stage's worker over peer links;
+``--connect HOST:PORT`` waits for workers started by hand with
+``python -m repro_torch.launch.worker --connect HOST:PORT --device cuda``):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
+      --cluster A100,L4 --stages 2 --transport socket --new-tokens 8
+
+Online front door (OpenAI-compatible HTTP API with SSE streaming over the
+wall-clock runtime; SIGINT drains and prints the TTFT/TPOT summary;
+``--autoscale`` runs the live autoscaler on its arrival rate):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
+      --cluster A100,L4 --stages 2 --serve 127.0.0.1:8902 \
+      [--transport socket]
+
 CPU smoke runs (small config, plain versions of the kernels): add
-``--smoke --device cpu``.  ``--prompt`` takes one length or a
-comma-separated list that the requests cycle through.
+``--smoke --device cpu`` (workers then run on the CPU too).  ``--prompt``
+takes one length or a comma-separated list that the requests cycle
+through.
 
 Not ported yet: the sharded mesh path (ROADMAP queue 1 item 8; without
-``--cluster`` or ``--paged`` this module raises), int8 KV, socket workers
-and the HTTP front door.
+``--cluster`` or ``--paged`` this module raises) and int8 KV (item 1).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import signal
+import threading
 import time
 from typing import List, Optional
 
@@ -51,8 +70,11 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import (MILPOptions, ModelProfile, make_serving_cluster,
                               plan)
+from repro_torch.core.cluster import COORDINATOR
 from repro_torch.models import init, resolve_device
+from repro_torch.serving.autoscaler import Autoscaler
 from repro_torch.serving.engine import EngineConfig, PagedEngine, Request
+from repro_torch.serving.frontend import Frontend
 from repro_torch.serving.runtime import ClusterRuntime
 
 
@@ -113,16 +135,15 @@ def engine_config(args) -> EngineConfig:
                         prompt_len=min(16, args.max_len))
 
 
-def run_cluster(cfg, args, params=None, *, draft=None, transport=None,
-                plan=None, verbose: bool = True):
-    """Serve ``--batch`` random prompts through the cluster runtime (paged
-    stage engines, or dense ones with ``--dense``), speculatively when
-    ``draft`` names a ``(draft_cfg, draft_params)`` pair or ``--draft`` an
-    arch; ``transport`` (an ``InProcessTransport``) models the links on the
-    runtime's virtual clock (default: no delay).  ``plan`` replaces the
-    MILP's plan of ``--cluster`` — a ``core.disaggregated_placement``
-    plan serves disaggregated prefill/decode.  Returns (runtime, requests,
-    plan, seconds)."""
+def build_runtime(cfg, args, params=None, *, draft=None, transport=None,
+                  plan=None, verbose: bool = True):
+    """The cluster runtime of ``--cluster`` (or ``plan``): paged stage
+    engines, or dense ones with ``--dense``, in this process or, with
+    ``--transport socket``, in one worker process per node; speculative
+    when ``draft`` names a ``(draft_cfg, draft_params)`` pair or
+    ``--draft`` an arch.  ``transport`` (an ``InProcessTransport``) models
+    the links of an in-process run.  With ``--serve`` an in-process
+    runtime runs on the wall clock.  Returns (runtime, plan)."""
     dev = resolve_device(args.device)
     p = plan if plan is not None else make_plan(cfg, args)
     if verbose:
@@ -133,19 +154,37 @@ def run_cluster(cfg, args, params=None, *, draft=None, transport=None,
     if draft is None and args.draft:
         dcfg = build_config(args, args.draft)
         draft = (dcfg, init(dcfg, args.seed, device=dev))
-    spec_kw = {}
+    kw = dict(paged=not args.dense, page_size=args.page_size,
+              max_inflight=args.max_inflight, device=dev)
     if draft is not None:
         if verbose:
             print(f"draft: {draft[0].name} ({draft[0].num_layers}L "
                   f"d={draft[0].d_model} {draft[0].param_dtype}), "
                   f"spec_tokens={args.spec_tokens}")
-        spec_kw = dict(draft_cfg=draft[0], draft_params=draft[1],
-                       spec_tokens=args.spec_tokens)
-    rt = ClusterRuntime(cfg, params, p, engine_config(args),
-                        paged=not args.dense,
-                        page_size=args.page_size,
-                        max_inflight=args.max_inflight, device=dev,
-                        transport=transport, **spec_kw)
+        kw.update(draft_cfg=draft[0], draft_params=draft[1],
+                  spec_tokens=args.spec_tokens)
+    if args.transport == "socket":
+        rt = ClusterRuntime.spawn_workers(
+            cfg, params, p, engine_config(args),
+            connect=args.connect or None, stall_timeout_s=120.0,
+            direct_links=args.direct_links, **kw)
+    else:
+        rt = ClusterRuntime(cfg, params, p, engine_config(args),
+                            transport=transport,
+                            realtime=True if args.serve else None, **kw)
+    return rt, p
+
+
+def run_cluster(cfg, args, params=None, *, draft=None, transport=None,
+                plan=None, verbose: bool = True):
+    """Serve ``--batch`` random prompts through the runtime of
+    ``build_runtime`` (same arguments).  ``plan`` replaces the MILP's plan
+    of ``--cluster`` — a ``core.disaggregated_placement`` plan serves
+    disaggregated prefill/decode.  Returns (runtime, requests, plan,
+    seconds); the caller shuts down a runtime with workers."""
+    dev = resolve_device(args.device)
+    rt, p = build_runtime(cfg, args, params, draft=draft,
+                          transport=transport, plan=plan, verbose=verbose)
     reqs = make_requests(cfg, args)
 
     def run():
@@ -161,10 +200,67 @@ def run_cluster(cfg, args, params=None, *, draft=None, transport=None,
         _report(reqs, dt, dev, "cluster" + (" (dense)" if args.dense else ""))
         if rt.draft is not None:
             print(f"  {rt._spec_note()}")
-        print(f"  mean decode latency (virtual clock: modelled link delays, "
-              f"not compute): {1e3 * rt.mean_decode_latency():.3f} ms/token; "
+        clock = ("wall clock" if rt.realtime else
+                 "virtual clock: modelled link delays, not compute")
+        print(f"  mean decode latency ({clock}): "
+              f"{1e3 * rt.mean_decode_latency():.3f} ms/token; "
               f"cancelled in-flight passes: {rt.cancelled_inflight}")
     return rt, reqs, p, dt
+
+
+def run_frontdoor(cfg, rt, args, plan_obj=None) -> None:
+    """Serve the runtime behind the OpenAI-compatible HTTP front door until
+    SIGINT/SIGTERM, then drain and print the TTFT/TPOT/SLO summary.  With
+    ``--autoscale`` the live autoscaler samples the front door's arrival
+    rate."""
+    host, _, port = args.serve.rpartition(":")
+    fe = Frontend(rt, max_pending=args.max_pending,
+                  slo_ttft_s=args.slo_ttft_ms / 1e3
+                  if args.slo_ttft_ms > 0 else None,
+                  slo_tpot_s=args.slo_tpot_ms / 1e3
+                  if args.slo_tpot_ms > 0 else None)
+    scaler = None
+    if args.autoscale and plan_obj is not None:
+        catalog = None
+        if args.autoscale_node_rate > 0:
+            # cap every device's modelled token rate, so the mix planner
+            # sees a small, known per-node capacity
+            catalog = {n.device.name:
+                       dataclasses.replace(
+                           n.device,
+                           max_tokens_per_s=args.autoscale_node_rate)
+                       for name, n in rt.cluster.nodes.items()
+                       if name != COORDINATOR}
+        scaler = Autoscaler(rt, plan_obj, frontend=fe, catalog=catalog,
+                            patience=args.autoscale_patience,
+                            window_s=args.autoscale_window_s)
+        scaler.start(args.autoscale_interval_s)
+        print(f"autoscaler: interval={args.autoscale_interval_s}s "
+              f"patience={args.autoscale_patience} "
+              f"window={args.autoscale_window_s}s "
+              f"catalog={sorted(scaler.catalog)}", flush=True)
+    bhost, bport = fe.serve(host or "127.0.0.1", int(port))
+    print(f"serving {cfg.name} on http://{bhost}:{bport} "
+          f"(POST /v1/completions, GET /healthz; SIGINT drains)",
+          flush=True)
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    while not stop.is_set():
+        stop.wait(0.2)
+    print("draining ...", flush=True)
+    if scaler is not None:
+        scaler.stop()
+    fe.shutdown(drain=True)
+    if scaler is not None:
+        print("autoscale events: " + json.dumps(
+            [dataclasses.asdict(e) for e in scaler.events], default=float),
+            flush=True)
+    print("served summary: " + json.dumps(fe.summary(), default=float),
+          flush=True)
+    rt.shutdown()
+    if fe.loop_error is not None:
+        raise SystemExit(f"runtime loop died: {fe.loop_error!r}")
 
 
 def run_paged(cfg, args, params=None, *, verbose: bool = True):
@@ -229,18 +325,63 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "round trip (gamma)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
+    ap.add_argument("--transport", choices=["inproc", "socket"],
+                    default="inproc",
+                    help="with --cluster: socket runs one stage worker "
+                         "process per node (on --device) behind the "
+                         "SocketTransport")
+    ap.add_argument("--connect", default="",
+                    help="with --transport socket: listen on HOST:PORT and "
+                         "wait for workers started by hand (python -m "
+                         "repro_torch.launch.worker --connect HOST:PORT) "
+                         "instead of spawning local subprocesses")
+    ap.add_argument("--direct-links", action="store_true",
+                    help="with --transport socket: stage workers forward "
+                         "activations to the next stage's worker over peer "
+                         "TCP links; only tokens return to the coordinator")
+    ap.add_argument("--serve", default="",
+                    help="with --cluster: HOST:PORT of the OpenAI-"
+                         "compatible HTTP front door (SSE streaming; port "
+                         "0 picks a free port, printed on startup) instead "
+                         "of a one-shot batch")
+    ap.add_argument("--max-pending", type=int, default=64,
+                    help="with --serve: 429 past this many accepted but "
+                         "unfinished requests")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                    help="with --serve: TTFT SLO of the served summary "
+                         "(0 = none)")
+    ap.add_argument("--slo-tpot-ms", type=float, default=0.0,
+                    help="with --serve: mean-TPOT SLO of the served "
+                         "summary (0 = none)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="with --serve: run the live autoscaler (mix-solve "
+                         "the measured traffic, grow, shrink or reweight "
+                         "through apply_plan)")
+    ap.add_argument("--autoscale-interval-s", type=float, default=2.0,
+                    help="with --autoscale: sampling interval")
+    ap.add_argument("--autoscale-patience", type=int, default=2,
+                    help="with --autoscale: consecutive overloaded samples "
+                         "before scaling")
+    ap.add_argument("--autoscale-window-s", type=float, default=15.0,
+                    help="with --autoscale: arrival-rate trailing window")
+    ap.add_argument("--autoscale-node-rate", type=float, default=0.0,
+                    help="with --autoscale: cap each device type's "
+                         "modelled tokens/s at this value (0 = the device "
+                         "profiles' own)")
     return ap.parse_args(argv)
 
 
 def _not_drained(rt) -> dict:
-    """Nodes still holding pages (paged) or slots (dense)."""
+    """Nodes still holding pages (paged) or slots (dense); a worker's
+    engine is asked over RPC (pages and KV tokens)."""
     out = {n: u for n, u in rt.pool_pages_used().items() if u}
     engines = dict(rt.engines)
     if rt.draft is not None:
         engines["draft"] = rt.draft
     for n, e in engines.items():
-        if e.free_slots != len(e.slots) or e.kv_tokens_used():
-            out[n] = f"{len(e.slots) - e.free_slots} slots"
+        busy = len(e.slots) - e.free_slots if hasattr(e, "slots") else 0
+        if busy or e.kv_tokens_used():
+            out[n] = f"{busy} slots, {e.kv_tokens_used()} KV tokens"
     return out
 
 
@@ -250,9 +391,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.cluster:
         print(f"serving {cfg.name} ({cfg.num_layers}L d={cfg.d_model} "
               f"{cfg.param_dtype}) over cluster {args.cluster} on "
-              f"{args.device}")
+              f"{args.device}" + (" (one worker process per node)"
+                                  if args.transport == "socket" else ""))
+        if args.serve:
+            rt, p = build_runtime(cfg, args)
+            run_frontdoor(cfg, rt, args, plan_obj=p)
+            return
         rt, _, _, _ = run_cluster(cfg, args)
-        leaked = _not_drained(rt)
+        try:
+            leaked = _not_drained(rt)
+        finally:
+            rt.shutdown()            # reap worker processes (socket runs)
         if leaked:
             raise SystemExit(f"KV not released: {leaked}")
         print("dense caches released on every node" if args.dense

@@ -11,9 +11,9 @@ the same replan machinery failover uses (``plan()`` + ``apply_plan``):
               node mix -> solve the cheapest mix that does, grow the
               ``ClusterSpec`` (never shrinking below what is running),
               re-place, ``apply_plan``.  Engines for the new nodes are
-              built by the runtime's own ``_make_engine`` on the runtime's
-              device (worker processes and engine factories are ROADMAP
-              queue 1 item 6).
+              built by the runtime's ``_make_engine``: on the runtime's
+              device, or through its engine factory, so a runtime of
+              ``spawn_workers`` spawns a worker for each new node.
   scale-down  the mix stays feasible without some node for
               ``patience`` consecutive ticks -> two-phase drain + retire:
               first shift flow away (``reweight_for_straggler`` with a
@@ -31,9 +31,10 @@ mutates the runtime directly; every mutation rides
 ``ClusterRuntime.call_soon`` onto the loop thread, the same FIFO a
 ``cancel()`` rides, so plans apply between steps, never during one.
 
-The traffic signal: ``traffic_fn``, or a ``frontend`` object with the
-reference ``Frontend``'s ``arrival_rate(window_s)``, ``_lock`` and
-``lengths`` (duck-typed: the port has no front door until item 6).
+The traffic signal: ``traffic_fn``, or the front door
+(``serving.frontend.Frontend``: its ``arrival_rate(window_s)`` and the
+completed ``lengths``); passing ``frontend=`` registers the autoscaler as
+``frontend.autoscaler``, which ``/healthz`` reports.
 """
 from __future__ import annotations
 
@@ -62,8 +63,8 @@ class Autoscaler:
     ----------
     runtime, plan : the running ``ClusterRuntime`` and the ``Plan`` it was
         built from (the runtime keeps cluster/placement but not the Plan).
-    frontend : optional front door (duck-typed, see the module docstring)
-        — the arrival-rate / length-pair source.  Tests may instead inject
+    frontend : optional ``Frontend`` — the arrival-rate / length-pair
+        source.  Tests may instead inject
         ``traffic_fn`` returning a ``TrafficProfile`` (or None for "no
         signal yet").
     catalog : device types the autoscaler may rent, name -> profile.

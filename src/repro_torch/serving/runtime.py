@@ -1,18 +1,20 @@
 """ClusterRuntime: execute IWRR pipelines across per-node stage engines —
-counterpart of ``repro.serving.runtime`` (the in-process, virtual-clock
-path).
+counterpart of ``repro.serving.runtime``.
 
 The MILP places layer slices on nodes, max-flow IWRR walks per-request
 pipelines, and this module runs them: each node owns a stage engine over
 its assigned ``LayerRange`` — a ``PagedStageEngine`` (paged mode, the
 default) or a dense ``StageEngine`` (``paged=False``, or a slice with no
-paged layer) — activations hop between nodes through the
-``InProcessTransport``, and every node continuously batches whatever
-stage-work (from any request, entering at any layer) is resident each
-iteration.  Every node's engine lives on the same device (one card, or the
-CPU when asked), as the reference runs every node in one process.
+paged layer) — activations hop between nodes through a transport, and
+every node continuously batches whatever stage-work (from any request,
+entering at any layer) is resident each iteration.  By default every
+node's engine lives in this process on one device (one card, or the CPU
+when asked), as the reference runs every node in one process;
+``spawn_workers`` puts each node's engine in a worker process of its own
+(``repro_torch.launch.worker``) behind the ``SocketTransport``.
 
-Event loop: a virtual-clock heap of deliveries.  Prefill hops execute inline
+Event loop: a virtual-clock heap of deliveries (or the wall-clock mailbox,
+below).  Prefill hops execute inline
 as they arrive: in paged mode chunked across stages (chunk n+1 enters
 stage 0 as soon as chunk n left it), in dense mode single-shot, one hop per
 stage, with a guard that drops a duplicate delivery; decode inputs
@@ -92,20 +94,43 @@ each node's seconds inside decode passes and tokens through them (the
 autoscaler's straggler signal), read on a CUDA card after the pass has
 finished on the device.
 
+Wall clock: a realtime transport (``SocketTransport``) finishes deliveries
+on its own threads, so the runtime runs on the wall clock — deliveries
+land in a thread-safe mailbox that ``step`` drains, ``clock()`` reads
+``time.monotonic()``, ``run_until_done`` waits on the mailbox (up to
+``stall_timeout_s``) instead of declaring a stall, and ``submit``,
+``cancel`` and ``call_soon`` post a wake-up to it.  ``realtime=True``
+forces the wall clock over the in-process transport (the front door's
+mode): its modelled link delays become real timers into the mailbox.
+``serve_forever`` steps an open workload until ``stop_serving``.  Such a
+transport may duplicate a delivery (a retransmit, or a chaos test's
+double), so every delivery carries a dedup key: the first token, each
+decode pass per stage and epoch, each verify result, each prefill hop and
+each KV handoff run once.
+
+Workers: ``spawn_workers`` launches one worker process per placed node
+(``subprocess.Popen``, never a fork) or accepts workers started by hand
+(``connect=``), ships each its slice at ``init`` (config, params as host
+tensors, pool sizing, device), and proxies it with a
+``RemoteStageEngine``.  With ``direct_links`` each compute RPC carries the
+next hop, and the worker pushes its output to the next stage's worker
+over a peer link.  ``kill_worker`` SIGKILLs one; ``fail_node`` +
+``apply_plan`` replan around it, respawning a worker for a node that
+re-enters the placement; ``shutdown`` reaps them all.
+
 Not ported yet (the arguments raise; ROADMAP queue 1): int8 KV pools
-(item 1), the wall-clock (realtime) loop with its delivery mailbox, socket
-transports, workers and worker-to-worker pushes (item 6), and models that
-are not all-paged (item 7).  Nor are the reference's guards against a
-transport that delivers a payload twice, but for the dense prefill's and
-the KV handoff's (item 6): the in-process transport delivers each payload
-once (it may reorder them: prefill chunks then wait for their
-predecessors, decode tokens in the coordinator's inbox).
+(item 1, and with them the int8 handoff over the wire) and models that are
+not all-paged (item 7).
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
+import os
 import queue as _queue
+import socket as _socket
+import subprocess
+import sys
 import threading
 import time
 from collections import defaultdict, deque
@@ -118,19 +143,22 @@ from ..configs.base import ModelConfig
 from ..core.cluster import COORDINATOR
 from ..core.placement import LayerRange, Placement
 from ..core.planner import plan as make_plan
-from ..models.common import resolve_device
+from ..models.common import map_tree, resolve_device
 from ..models.paged import all_blocks_paged
 from ..models.stage import stage_num_paged_layers
 from .engine import EngineConfig, Request
 from .kv_pool import full_rectangle_pages, pages_for_vram
 from .stage_engine import DecodeItem, PagedStageEngine, StageEngine
+from .transport import (RemoteStageEngine, SocketTransport, WorkerChannel,
+                        WorkerDied)
 
 
 class InProcessTransport:
     """Same-process transport: payloads are handed over by reference after
     a modelled link delay (``delay``: the link's latency plus nbytes over
-    the bandwidth), on the runtime's virtual clock (the runtime binds
-    ``schedule(delay_s, fn)`` at construction).
+    the bandwidth), on the runtime's virtual clock — or, on a realtime
+    runtime, after a real timer (the runtime binds ``schedule(delay_s,
+    fn)`` at construction).
 
     ``direct_links`` (the default) models routed worker-to-worker links: a
     stage->stage send costs one (src, dst) hop.  With
@@ -274,28 +302,28 @@ class ClusterRuntime:
     docstring).
 
     ``plan`` is a ``repro_torch.core.planner.Plan``; engines are built from
-    its placement on ``device``.  Paged engines get pools sized from each
-    node's own VRAM (capped at the full rectangle, floored at one max_len
-    request) unless ``pool_pages`` names a node's page count.
+    its placement on ``device`` (or by ``engine_factory(runtime, node,
+    layers)``, which ``spawn_workers`` uses to put them in workers).  Paged
+    engines get pools sized from each node's own VRAM (capped at the full
+    rectangle, floored at one max_len request) unless ``pool_pages`` names
+    a node's page count.
     """
 
     def __init__(self, cfg: ModelConfig, params, plan,
                  engine_cfg: EngineConfig, *, paged: bool = True,
                  page_size: int = 16, kv_dtype: Optional[str] = None,
                  pool_pages: Optional[Mapping[str, int]] = None,
-                 transport: Optional[InProcessTransport] = None,
-                 rng_seed: int = 0, max_inflight: int = 1, device="cuda",
-                 engine_factory=None,
+                 transport=None, rng_seed: int = 0, max_inflight: int = 1,
+                 device="cuda",
+                 engine_factory: Optional[Callable[["ClusterRuntime", str,
+                                                    LayerRange], Any]] = None,
+                 stall_timeout_s: float = 60.0,
                  draft_cfg: Optional[ModelConfig] = None, draft_params=None,
                  spec_tokens: int = 4, realtime: Optional[bool] = None):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if kv_dtype == "int8":
             raise _not_ported("int8 KV serving", 1)
-        if realtime:
-            raise _not_ported("the wall-clock loop", 6)
-        if engine_factory is not None:
-            raise _not_ported("engine factories (remote workers)", 6)
         if not all_blocks_paged(cfg):
             raise _not_ported(f"serving {cfg.name} (not all-paged)", 7)
         self.cfg = cfg
@@ -307,6 +335,8 @@ class ClusterRuntime:
         self.page_size = page_size
         self.pool_pages = dict(pool_pages or {})
         self.rng_seed = rng_seed
+        self.stall_timeout_s = stall_timeout_s
+        self._engine_factory = engine_factory
         self.cluster = plan.cluster
         self.placement = plan.placement
         self.profile = plan.model
@@ -315,7 +345,23 @@ class ClusterRuntime:
                              f"{cfg.name} has {cfg.num_layers}")
         self._build_role_schedulers(plan)
         self.transport = transport or InProcessTransport()
-        self.transport.bind(lambda d, fn: self._push(self._now + d, fn))
+        # a realtime transport (sockets) finishes deliveries on its own
+        # threads: they land in a thread-safe mailbox drained by step(), and
+        # the loop runs on the wall clock.  A virtual-clock transport keeps
+        # the event heap unless ``realtime=True`` forces the wall clock (the
+        # front door over the in-process transport), whose modelled link
+        # delays then become real timers into the same mailbox.
+        auto = bool(getattr(self.transport, "realtime", False))
+        self.realtime = auto if realtime is None else bool(realtime)
+        self._mailbox: "_queue.Queue" = _queue.Queue()
+        self._stop_serving = threading.Event()
+        self._t0 = time.monotonic()
+        if auto:
+            self.transport.bind(lambda d, fn: self._mailbox.put(fn))
+        elif self.realtime:
+            self.transport.bind(self._deliver_realtime)
+        else:
+            self.transport.bind(lambda d, fn: self._push(self._now + d, fn))
         # submissions, cancels and call_soon thunks from any thread, in one
         # FIFO that only the loop thread drains
         self._ingest: "_queue.Queue" = _queue.Queue()
@@ -355,6 +401,7 @@ class ClusterRuntime:
         self.spec_confirmed = 0      # tokens confirmed by verify rounds
                                      # (accepted prefix + 1 per round)
 
+        self.workers: Dict[str, Any] = {}   # node -> worker process
         self.engines: Dict[str, Any] = {}
         for node, rng in sorted(self.placement.assignment.items()):
             self.engines[node] = self._make_engine(node, rng)
@@ -387,11 +434,15 @@ class ClusterRuntime:
         self.decode_latencies: Dict[int, float] = {}
 
     # -- engine construction ------------------------------------------------
-    def _pool_pages(self, node: str, rng: LayerRange) -> int:
-        """Pool size for a node's slice."""
-        if node in self.pool_pages:
-            return self.pool_pages[node]
+    def _engine_spec(self, node: str, rng: LayerRange) -> Dict[str, Any]:
+        """Paged or dense, and the pool size, of a node's slice — shared by
+        local construction and a worker's init, so a remote node's pool is
+        sized as a local one's would be."""
         n_paged = stage_num_paged_layers(self.cfg, rng)
+        if not self.paged or n_paged == 0:
+            return {"paged": False, "num_pages": None}
+        if node in self.pool_pages:
+            return {"paged": True, "num_pages": self.pool_pages[node]}
         rect = full_rectangle_pages(self.cfg, max_batch=self.ec.max_batch,
                                     max_len=self.ec.max_len,
                                     page_size=self.page_size,
@@ -401,16 +452,20 @@ class ClusterRuntime:
                                layers_on_node=rng.num_layers, max_pages=rect)
         # floor: one full-budget request must always fit
         blocks = -(-self.ec.max_len // self.page_size)
-        return max(pages, 1 + blocks * n_paged)
+        return {"paged": True, "num_pages": max(pages, 1 + blocks * n_paged)}
 
     def _make_engine(self, node: str, rng: LayerRange):
-        """A dense ``StageEngine`` when the runtime is dense or the slice has
-        no paged layer, else a ``PagedStageEngine`` with its pool."""
-        if not self.paged or stage_num_paged_layers(self.cfg, rng) == 0:
+        """The factory's engine, else a dense ``StageEngine`` when the
+        runtime is dense or the slice has no paged layer, else a
+        ``PagedStageEngine`` with its pool."""
+        if self._engine_factory is not None:
+            return self._engine_factory(self, node, rng)
+        spec = self._engine_spec(node, rng)
+        if not spec["paged"]:
             return StageEngine(self.cfg, self.params, rng, self.ec,
                                rng_seed=self.rng_seed, device=self.device)
         return PagedStageEngine(self.cfg, self.params, rng, self.ec,
-                                num_pages=self._pool_pages(node, rng),
+                                num_pages=spec["num_pages"],
                                 page_size=self.page_size,
                                 rng_seed=self.rng_seed, device=self.device)
 
@@ -464,11 +519,41 @@ class ClusterRuntime:
         return float(self.profile.kv_bytes_per_token_layer
                      * tokens * n_layers)
 
+    def _fwd_spec(self, eng, dst: Optional[str]
+                  ) -> Optional[Tuple[str, int]]:
+        """Forward spec ``(dst node, staging tag)`` when this engine's
+        output can be pushed worker-to-worker instead of riding the RPC
+        reply: the transport has direct links, both ends are
+        forward-capable workers, and the destination is a node (tokens to
+        the coordinator always come back on the reply)."""
+        if dst is None or dst == COORDINATOR:
+            return None
+        if not getattr(self.transport, "direct_links", False):
+            return None
+        alloc = getattr(self.transport, "alloc_tag", None)
+        if alloc is None or not getattr(eng, "forward_capable", False):
+            return None
+        if not getattr(self.engines.get(dst), "forward_capable", False):
+            return None
+        return (dst, alloc())
+
     # -- public API ---------------------------------------------------------
     def clock(self) -> float:
-        """Seconds on the runtime's virtual event clock; every per-request
-        timestamp is stamped from here."""
+        """Seconds on the runtime's own clock: monotonic wall time since
+        construction for realtime runs, the virtual event clock otherwise.
+        Every per-request timestamp is stamped from here, so TTFT and TPOT
+        never go negative when the system clock steps."""
+        if self.realtime:
+            return time.monotonic() - self._t0
         return self._now
+
+    def _deliver_realtime(self, d: float, fn: Callable[[], None]) -> None:
+        """Delivery sink of realtime runs over the in-process transport: a
+        modelled link delay becomes a real timer into the mailbox."""
+        if d > 0:
+            threading.Timer(d, self._mailbox.put, args=(fn,)).start()
+        else:
+            self._mailbox.put(fn)
 
     def submit(self, req: Request, *,
                on_token: Optional[Callable[[int], None]] = None,
@@ -501,17 +586,20 @@ class ClusterRuntime:
         with self._ingest_lock:
             self._ingest_jobs += 1
         self._ingest.put(_Job(req))
+        self._mailbox.put(lambda: None)   # wake an idle serve loop
 
     def cancel(self, request_id: int) -> None:
         """Cancel a request, from any thread.  The cancel rides the ingest
         FIFO behind its submit; the loop thread tears the request down in
         ``_do_cancel``.  Unknown or finished ids are a no-op."""
         self._ingest.put(("cancel", request_id))
+        self._mailbox.put(lambda: None)   # wake an idle serve loop
 
     def call_soon(self, fn: Callable[[], None]) -> None:
         """Run ``fn`` on the loop thread at the next step: the door through
         which the autoscaler applies ``apply_plan`` between steps."""
         self._ingest.put(fn)
+        self._mailbox.put(lambda: None)
 
     def pending(self) -> int:
         """Requests accepted but not finished: ingest, admission queue and
@@ -570,13 +658,25 @@ class ClusterRuntime:
 
     def _idle(self) -> bool:
         return not (self.queue or self.jobs or self._events or self._ready
-                    or self._ingest.qsize())
+                    or self._mailbox.qsize() or self._ingest.qsize())
+
+    def _inflight_work(self) -> bool:
+        """Work whose progress waits on a future delivery: live jobs,
+        scheduled events, or stage-work awaiting a decode pass.  A queue of
+        requests alone is not in flight: it drains as running work frees
+        capacity, and never can when nothing runs."""
+        return bool(self.jobs or self._events or self._ready)
 
     def run_until_done(self, max_iters: int = 100000) -> None:
         for _ in range(max_iters):
             if self._idle():
                 return
             if self.step():
+                continue
+            # a realtime transport completes deliveries on its own threads:
+            # no local progress means bytes still in flight — wait on the
+            # mailbox instead of declaring a stall
+            if self.realtime and self._await_delivery(self.stall_timeout_s):
                 continue
             raise RuntimeError(
                 "runtime stalled: queued requests cannot be admitted "
@@ -586,9 +686,55 @@ class ClusterRuntime:
         raise RuntimeError(
             f"not done after {max_iters} iterations; " + self._state())
 
+    def serve_forever(self) -> None:
+        """Online loop: step while other threads ``submit()``.  The workload
+        is open — ``_idle()`` means waiting for the next request, so an idle
+        wait blocks on the mailbox without a limit and the stall timer runs
+        only while work is in flight.  Returns once ``stop_serving()`` was
+        called and everything in flight has drained."""
+        while True:
+            if self.step():
+                continue
+            if self._idle() and self._stop_serving.is_set():
+                return
+            if self._inflight_work():
+                # a delivery must land within the stall budget, or the run
+                # is declared wedged with diagnostics
+                if not self._await_delivery(self.stall_timeout_s):
+                    raise RuntimeError(
+                        "runtime stalled with work in flight; "
+                        + self._state())
+            elif self.queue:
+                # admission-blocked with nothing running: capacity can never
+                # free up (the pool floor fits one max-budget request)
+                raise RuntimeError(
+                    "queued requests cannot be admitted "
+                    "(cluster slots/pools too small?); " + self._state())
+            else:
+                self._await_delivery(None)   # idle: wait for a wake-up
+
+    def stop_serving(self) -> None:
+        """Ask ``serve_forever`` to return once in-flight work drains (any
+        thread).  Requests already accepted are still served."""
+        self._stop_serving.set()
+        self._mailbox.put(lambda: None)   # wake a blocked idle wait
+
+    def _await_delivery(self, timeout_s: Optional[float] = None) -> bool:
+        """Block for the next transport delivery or wake-up and run it.
+        ``timeout_s=None`` blocks without a limit (nothing in flight); a
+        bounded wait is armed only over in-flight work, so a wedged run
+        fails with diagnostics instead of hanging."""
+        try:
+            fn = self._mailbox.get(timeout=timeout_s)
+        except _queue.Empty:
+            return False
+        fn()
+        return True
+
     def _state(self) -> str:
         """Queue / in-flight diagnostics for stall and iteration-budget
-        errors."""
+        errors; a transport that can stall (bounded socket queues) names
+        its wedged link in ``describe()``."""
         windows = {j.req.request_id: f"{len(j.req.output)}+{j.inflight}"
                    for j in self.jobs.values()}
         ready = {n: len(v) for n, v in self._ready.items() if v}
@@ -601,9 +747,12 @@ class ClusterRuntime:
                 f"now={self._now:.6f} transport={self.transport.describe()}")
 
     def step(self) -> bool:
-        """One runtime iteration: admit, drain deliveries due now, then one
-        batched decode per node with resident stage-work.  Returns whether
-        anything progressed."""
+        """One runtime iteration: admit, run deliveries due now (the
+        virtual clock's, then the mailbox's), then one batched decode per
+        node with resident stage-work.  Returns whether anything
+        progressed."""
+        if self.realtime:
+            self._now = max(self._now, time.monotonic() - self._t0)
         self._drain_ingest()
         progressed = self._admit()
         if self._events:
@@ -612,6 +761,13 @@ class ClusterRuntime:
                 _, _, fn = heapq.heappop(self._events)
                 fn()
                 progressed = True
+        while True:                  # wall-clock deliveries
+            try:
+                fn = self._mailbox.get_nowait()
+            except _queue.Empty:
+                break
+            fn()
+            progressed = True
         for node in [n for n, v in self._ready.items() if v]:
             work = self._ready.pop(node)
             work = [w for w in work if w["job"].epoch == w["epoch"]]
@@ -756,28 +912,38 @@ class ClusterRuntime:
     def _hop(self, job: _Job, si: int, off: Optional[int]
              ) -> Callable[[Any], None]:
         """Delivery of a prefill payload to stage ``si``: the whole prompt
-        (``off=None``, dense), which runs once per stage — a duplicate
-        delivery is dropped — or the chunk at ``off`` (paged).  Chunks run
-        strictly in offset order per stage: with a bandwidth term a smaller
-        chunk's link delay is shorter, so it can overtake its predecessor,
-        and then waits for it."""
+        (``off=None``, dense) or the chunk at ``off`` (paged)."""
         epoch = job.epoch
+        return lambda x: self._prefill_at(job, epoch, si, x, off)
 
-        def deliver(x):
-            if job.epoch != epoch:
-                return               # preempted/requeued mid-flight
-            if off is None:
-                if ("pf", si) in job.seen:
-                    return
-                job.seen.add(("pf", si))
-                self._prefill_exec(job, epoch, si, x, None)
+    def _prefill_at(self, job: _Job, epoch: int, si: int, x,
+                    off: Optional[int]) -> None:
+        """Delivery guard for prefill payloads: a duplicate is dropped, and
+        chunks run strictly in offset order per stage — a transport may
+        duplicate and reorder (with a bandwidth term a smaller chunk's link
+        delay is shorter, so it can overtake its predecessor), KV writes
+        may not."""
+        if job.epoch != epoch:
+            return                      # preempted/requeued mid-flight
+        if off is None:                 # single-shot prefill: one hop/stage
+            if ("pf", si) in job.seen:
                 return
-            stash = job.hop_stash.setdefault(si, {})
-            stash[off] = x
-            while job.epoch == epoch and job.hop_next.get(si, 0) in stash:
-                nxt = job.hop_next.get(si, 0)
-                self._prefill_exec(job, epoch, si, stash.pop(nxt), nxt)
-        return deliver
+            job.seen.add(("pf", si))
+            self._prefill_exec(job, epoch, si, x, None)
+            return
+        expect = job.hop_next.get(si, 0)
+        if off < expect:
+            return                      # duplicate of an executed chunk
+        if off > expect:                # overtook a predecessor: wait
+            job.hop_stash.setdefault(si, {})[off] = x
+            return
+        self._prefill_exec(job, epoch, si, x, off)
+        while job.epoch == epoch:       # run the chunks this one unblocked
+            nxt = job.hop_next.get(si, 0)
+            stash = job.hop_stash.get(si, {})
+            if nxt not in stash:
+                break
+            self._prefill_exec(job, epoch, si, stash.pop(nxt), nxt)
 
     def _prefill_exec(self, job: _Job, epoch: int, si: int, x,
                       off: Optional[int]) -> None:
@@ -786,16 +952,22 @@ class ClusterRuntime:
         eng = self.engines[st.node]
         slot = job.slots[st.node]
         last = si == len(stages) - 1
+        nxt = None if last else stages[si + 1].node
+        # route-driven forwarding: the engine RPC carries the next hop, so a
+        # worker pushes its activations straight to the next stage's worker
+        # and replies with an ack (the StagedRef the runtime then routes)
+        fwd = self._fwd_spec(eng, nxt)
+        kw = {"fwd": fwd} if fwd else {}
         if off is None:
             n_tok = job.pos
-            out = eng.prefill_stage(slot, x, st.layers.start)
+            out = eng.prefill_stage(slot, x, st.layers.start, **kw)
         else:
             n_tok = min(max(1, self.ec.prompt_len), job.pos - off)
-            out = eng.prefill_chunk(slot, x, st.layers.start, off)
+            out = eng.prefill_chunk(slot, x, st.layers.start, off, **kw)
             job.hop_next[si] = off + n_tok
         if not last:
-            self._send(st.node, stages[si + 1].node, out,
-                       self._act_bytes(n_tok), self._hop(job, si + 1, off))
+            self._send(st.node, nxt, out, self._act_bytes(n_tok),
+                       self._hop(job, si + 1, off))
         if off is not None and si == 0 and off + n_tok < job.pos:
             # stage 0 freed: stream the next chunk in behind this one
             self._send_chunk(job, off + n_tok)
@@ -826,8 +998,14 @@ class ClusterRuntime:
         to a decode node; the decode launch stays gated on
         ``kv_pending`` until it lands."""
         st = job.route.prefill.stages[si]
-        payload = self.engines[st.node].export_kv(job.slots[st.node],
-                                                  job.pos, layers)
+        eng = self.engines.get(st.node)
+        if eng is None or st.node not in job.slots:
+            return                      # mid-failover: the job will requeue
+        # over direct links the export is pushed worker-to-worker; else it
+        # rides the reply and the transport stages it
+        fwd = self._fwd_spec(eng, dst)
+        payload = eng.export_kv(job.slots[st.node], job.pos, layers,
+                                **({"fwd": fwd} if fwd else {}))
         self._send(st.node, dst, payload, self._kv_bytes(job.pos,
                                                          len(layers)),
                    lambda p, jb=job, e=epoch, s=si, d=dst:
@@ -841,7 +1019,10 @@ class ClusterRuntime:
         if key in job.seen:
             return                      # duplicated delivery
         job.seen.add(key)
-        self.engines[dst].import_kv(job.slots[dst], job.pos, payload)
+        eng = self.engines.get(dst)
+        if eng is None or dst not in job.slots:
+            return
+        eng.import_kv(job.slots[dst], job.pos, payload)
         job.kv_pending.discard((si, dst))
         self._maybe_release_prefill(job)
         if not job.kv_pending and job.req.output:
@@ -864,8 +1045,9 @@ class ClusterRuntime:
             if st.node in decode_nodes or st.node in pending_src:
                 continue
             slot = job.slots.pop(st.node, None)
-            if slot is not None:
-                self.engines[st.node].release(slot)
+            eng = self.engines.get(st.node)
+            if slot is not None and eng is not None:
+                eng.release(slot)
 
     # -- token arrivals (coordinator) ----------------------------------------
     def _confirm(self, job: _Job, tok: int) -> None:
@@ -898,6 +1080,9 @@ class ClusterRuntime:
         their last confirmed token instead of sampling a new one)."""
         if job.epoch != epoch:
             return
+        if ("first",) in job.seen:
+            return                      # duplicated delivery
+        job.seen.add(("first",))
         req = job.req
         if not job.resumed:
             self._confirm(job, int(tok))
@@ -917,6 +1102,8 @@ class ClusterRuntime:
         arrivals ahead of the expected index wait in the job's inbox."""
         if job.epoch != epoch:
             return
+        if j < len(job.req.output):
+            return                      # duplicate of a confirmed token
         job.inbox[j] = int(tok)
         self._drain_inbox(job)
 
@@ -940,6 +1127,10 @@ class ClusterRuntime:
         and roll every stage node back to the accepted prefix."""
         if job.epoch != epoch:
             return
+        key = ("spec", j, epoch)
+        if key in job.seen:
+            return                      # duplicated delivery
+        job.seen.add(key)
         req = job.req
         drafts = job.spec_drafts
         greedy = [int(t) for t in np.asarray(greedy).reshape(-1)]
@@ -983,7 +1174,9 @@ class ClusterRuntime:
         caches are positional and ``draft_pos`` already points at the last
         confirmed row."""
         for node in dict.fromkeys(st.node for st in job.pipe.stages):
-            self.engines[node].rollback(job.slots[node], keep)
+            eng = self.engines.get(node)
+            if eng is not None and node in job.slots:
+                eng.rollback(job.slots[node], keep)
 
     def _spec_note(self) -> str:
         if self.draft is None:
@@ -1102,8 +1295,18 @@ class ClusterRuntime:
     def _enqueue_decode(self, job: _Job, epoch: int, si: int, tok: int,
                         h, pos: int, j: int, toks=None, spec: bool = False,
                         nt: int = 1) -> None:
+        """Delivery guard for decode stage-work: a duplicate of the same
+        (stage, output index) pass is dropped — running it twice would
+        decode the pass twice (and two copies in one batch would trip the
+        engine's duplicate-slot check).  The epoch is part of the key:
+        after a rejected verify rolls a job back, the same output index
+        relaunches under a new epoch and is not a duplicate."""
         if job.epoch != epoch:
             return
+        key = ("dw", si, j, epoch)
+        if key in job.seen:
+            return
+        job.seen.add(key)
         node = job.pipe.stages[si].node
         self._ready[node].append(dict(job=job, epoch=epoch, si=si, tok=tok,
                                       h=h, pos=pos, j=j, toks=toks,
@@ -1127,10 +1330,10 @@ class ClusterRuntime:
         """Reserve KV for an in-flight token on every stage node at launch;
         returns False when the job itself got preempted making room."""
         for st in job.pipe.stages:
-            if st.node not in job.slots:
-                return False
-            if not self._grow_or_preempt(self.engines[st.node], st.node, job,
-                                         tokens):
+            eng = self.engines.get(st.node)
+            if eng is None or st.node not in job.slots:
+                return False         # mid-failover: the job will requeue
+            if not self._grow_or_preempt(eng, st.node, job, tokens):
                 return False
         return True
 
@@ -1159,10 +1362,19 @@ class ClusterRuntime:
                                 .layers.start,
                                 token=w["tok"], h=w["h"], tokens=w["toks"])
                      for w in batch]
-            self._sync_device()
+            fwds = []
+            for w in batch:
+                stages = w["job"].pipe.stages
+                fwds.append(self._fwd_spec(
+                    eng, stages[w["si"] + 1].node
+                    if w["si"] + 1 < len(stages) else None))
+            self._sync_device(eng)
             t_pass = time.monotonic()
-            outs = eng.decode_stage(items)
-            self._sync_device()
+            if any(fwds):
+                outs = eng.decode_stage(items, fwds=fwds)
+            else:
+                outs = eng.decode_stage(items)
+            self._sync_device(eng)
             self.node_decode_s[node] += time.monotonic() - t_pass
             self.node_decode_tokens[node] += sum(w["nt"] for w in batch)
             for w, out in zip(batch, outs):
@@ -1197,15 +1409,18 @@ class ClusterRuntime:
                                self._enqueue_decode(jb, e, s, 0, h, p, jj,
                                                     spec=sp, nt=nn))
 
-    def _sync_device(self) -> None:
-        """Wait for the card.  On CUDA a non-final stage's ``decode_stage``
-        returns while its kernels are still queued (only the final stage
-        syncs, when it samples), so the straggler telemetry reads the
-        clock around a pass that has finished on the device: timed without
-        this, a node's seconds per token would be its launch time, not its
-        work.  On the CPU a pass has finished when it returns."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @staticmethod
+    def _sync_device(eng) -> None:
+        """Wait for a local engine's card.  On CUDA a non-final stage's
+        ``decode_stage`` returns while its kernels are still queued (only
+        the final stage syncs, when it samples), so the straggler telemetry
+        reads the clock around a pass that has finished on the device:
+        timed without this, a node's seconds per token would be its launch
+        time, not its work.  On the CPU a pass has finished when it
+        returns, and a worker's RPC returns with its reply."""
+        dev = getattr(eng, "device", None)
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     # -- completion / preemption ---------------------------------------------
     def _release_all(self, job: _Job) -> None:
@@ -1249,8 +1464,19 @@ class ClusterRuntime:
     def fail_node(self, name: str) -> None:
         """Drop a node's engine; every request whose route crossed it is
         requeued (its KV on survivors released) pending a replanned
-        route."""
-        self.engines.pop(name, None)
+        route.  A worker's channel is closed and its process reaped."""
+        eng = self.engines.pop(name, None)
+        close = getattr(eng, "close", None)
+        if callable(close):
+            close()                  # remote: drop the (maybe dead) channel
+        proc = self.workers.pop(name, None)
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)    # reap: no zombie per failover
         for job in list(self.jobs.values()):
             if name in job.route.nodes:
                 self._requeue(job, clear_pipe=True)
@@ -1339,3 +1565,198 @@ class ClusterRuntime:
         completed requests that decoded at least one token past prefill."""
         lats = list(self.decode_latencies.values())
         return sum(lats) / len(lats) if lats else 0.0
+
+    # -- multi-process workers ------------------------------------------------
+    @classmethod
+    def spawn_workers(cls, cfg: ModelConfig, params, plan,
+                      engine_cfg: EngineConfig, *,
+                      connect: Optional[str] = None,
+                      queue_depth: int = 8,
+                      worker_timeout_s: float = 300.0,
+                      direct_links: bool = False,
+                      **kw) -> "ClusterRuntime":
+        """A runtime whose stage engines live in worker processes behind a
+        ``SocketTransport``.
+
+        By default one ``repro_torch.launch.worker`` subprocess is launched
+        per placed node (``subprocess.Popen``: all started together, then
+        each dials back over loopback TCP).  With ``connect`` ("host:port")
+        the coordinator listens there and accepts workers started by hand
+        (``python -m repro_torch.launch.worker --connect host:port``), one
+        per node in sorted-node order.  Everything a node needs ships at
+        ``init``: config, params (copied to host tensors for each init and
+        dropped afterwards), its layer slice, pool sizing and the runtime's
+        ``device`` (``kw["device"]``, CUDA by default), so workers start
+        from nothing but the address.
+
+        Failover works by killing a worker (``kill_worker``, then
+        ``fail_node``); ``apply_plan`` re-inits surviving workers whose
+        slice moved over their channels and spawns a worker for a node
+        without a live one (a dead node that re-enters the placement, or a
+        node a scale-up adds).  Call ``shutdown()`` when done."""
+        nodes = sorted(plan.placement.assignment)
+        device = str(resolve_device(kw.get("device", "cuda")))
+        channels: Dict[str, WorkerChannel] = {}
+        procs: Dict[str, Any] = {}
+        src_root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+
+        def _launch(node: str):
+            lsock = _socket.socket()
+            lsock.bind(("127.0.0.1", 0))
+            lsock.listen(1)
+            host, port = lsock.getsockname()
+            env = dict(os.environ)
+            env["PYTHONPATH"] = src_root + (
+                os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                else "")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.worker",
+                 "--connect", f"{host}:{port}",
+                 "--timeout-s", str(worker_timeout_s), "--device", device],
+                env=env)
+            return lsock, proc
+
+        def _accept(node: str, lsock, proc) -> WorkerChannel:
+            lsock.settimeout(worker_timeout_s)
+            try:
+                conn, _ = lsock.accept()
+            except _socket.timeout:
+                proc.kill()
+                proc.wait(timeout=10)
+                raise RuntimeError(
+                    f"worker for {node} did not dial back within "
+                    f"{worker_timeout_s}s") from None
+            finally:
+                lsock.close()
+            procs[node] = proc
+            return WorkerChannel(conn, node=node, timeout_s=worker_timeout_s)
+
+        if connect is not None:
+            host, _, port = connect.rpartition(":")
+            lsock = _socket.socket()
+            lsock.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+            lsock.bind((host or "0.0.0.0", int(port)))
+            lsock.listen(len(nodes))
+            lsock.settimeout(worker_timeout_s)
+            print(f"waiting for {len(nodes)} workers on {connect} ...")
+            try:
+                for node in nodes:
+                    conn, addr = lsock.accept()
+                    channels[node] = WorkerChannel(conn, node=node,
+                                                   timeout_s=worker_timeout_s)
+                    print(f"  {node} <- worker at {addr[0]}:{addr[1]}")
+            finally:
+                lsock.close()
+        else:
+            # start every process first: their imports overlap
+            launched = {node: _launch(node) for node in nodes}
+            try:
+                for node in nodes:
+                    channels[node] = _accept(node, *launched[node])
+            except BaseException:
+                for lsock, proc in launched.values():
+                    lsock.close()
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait(timeout=10)
+                raise
+
+        transport = SocketTransport(channels, queue_depth=queue_depth,
+                                    direct_links=direct_links)
+        cfg_wire = dataclasses.asdict(cfg)
+        ec_wire = dataclasses.asdict(engine_cfg)
+
+        def _wire_peers() -> None:
+            """(Re)build the worker-to-worker mesh: ask every live worker
+            for its peer listener port, then broadcast the address book.
+            Runs after every init or respawn, so a replaced worker's new
+            port propagates; workers drop channels whose address changed
+            and re-dial lazily."""
+            addrs: Dict[str, Tuple[str, int]] = {}
+            for node, ch in sorted(channels.items()):
+                if not ch.alive:
+                    continue
+                try:
+                    port = ch.call("peer_addr")
+                    host = ch.sock.getpeername()[0]
+                except (WorkerDied, OSError):
+                    continue
+                addrs[node] = (host, int(port))
+            for node, ch in sorted(channels.items()):
+                if not ch.alive:
+                    continue
+                try:
+                    ch.call("set_peers", addrs)
+                except (WorkerDied, OSError):
+                    pass
+
+        def factory(rt: "ClusterRuntime", node: str, rng: LayerRange):
+            ch = channels.get(node)
+            if ch is None or not ch.alive:
+                if connect is not None:
+                    raise WorkerDied(
+                        f"no live worker for {node}, and workers started by "
+                        "hand cannot be respawned by the coordinator")
+                ch = _accept(node, *_launch(node))
+                channels[node] = ch
+                rt.workers[node] = procs[node]
+                transport.channels[node] = ch
+                transport.dead.discard(node)
+            spec = rt._engine_spec(node, rng)
+            # host copies per init, dropped afterwards: a permanent copy
+            # would double the coordinator's weight footprint
+            params_host = map_tree(lambda t: t.detach().cpu(), rt.params)
+            ch.call("init", {
+                "node": node, "cfg": cfg_wire, "ec": ec_wire,
+                "layers": (rng.start, rng.end), "params": params_host,
+                "paged": spec["paged"], "num_pages": spec["num_pages"],
+                "page_size": rt.page_size, "device": str(rt.device),
+                "rng_seed": rt.rng_seed})
+            del params_host
+            if direct_links:
+                _wire_peers()
+            return RemoteStageEngine(ch, node, rng_seed=rt.rng_seed)
+
+        try:
+            rt = cls(cfg, params, plan, engine_cfg, transport=transport,
+                     engine_factory=factory, **kw)
+        except BaseException:
+            transport.close()
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=10)
+            raise
+        rt.workers.update(procs)
+        return rt
+
+    def kill_worker(self, name: str) -> None:
+        """Hard-kill a node's worker process (fault injection: SIGKILL, no
+        cleanup); the caller then drives ``fail_node`` + replan +
+        ``apply_plan`` as for any node loss."""
+        proc = self.workers.get(name)
+        if proc is None:
+            raise ValueError(f"{name} has no worker process")
+        proc.kill()
+        proc.wait(timeout=30)
+
+    def shutdown(self) -> None:
+        """Tear down remote workers and transport threads (a no-op for an
+        in-process runtime)."""
+        for eng in self.engines.values():
+            close = getattr(eng, "close", None)
+            if callable(close):
+                close()
+        close = getattr(self.transport, "close", None)
+        if callable(close):
+            close()
+        for proc in self.workers.values():
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=10)
+        self.workers.clear()

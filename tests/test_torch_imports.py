@@ -50,8 +50,57 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.serving.engine",
               "repro_torch.serving.stage_engine",
+              "repro_torch.serving.transport",
+              "repro_torch.serving.frontend",
+              "repro_torch.launch.worker",
               "repro_torch.convert"):
         assert m in mods, res.stdout
+
+
+WORKER_SCRIPT = textwrap.dedent("""
+    import runpy, socket, sys, threading
+
+    BLOCKED = ("jax", "jaxlib", "repro")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    srv.settimeout(60)
+    port = srv.getsockname()[1]
+    sys.argv = ["worker", "--connect", f"127.0.0.1:{port}", "--device",
+                "cpu", "--timeout-s", "60"]
+    th = threading.Thread(target=runpy.run_module,
+                          args=("repro_torch.launch.worker",),
+                          kwargs={"run_name": "__main__"}, daemon=True)
+    th.start()
+    conn, _ = srv.accept()
+    from repro_torch.serving.transport import WorkerChannel
+    ch = WorkerChannel(conn, node="n0", timeout_s=60)
+    print(ch.call("ping"))
+    ch.call("shutdown")
+    th.join(timeout=60)
+    assert not th.is_alive()
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not bad, bad
+""")
+
+
+def test_worker_runs_as_a_module_without_jax_or_repro():
+    """``python -m repro_torch.launch.worker`` runs (dials, answers a
+    ping, shuts down) in an interpreter that refuses jax and repro."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run([sys.executable, "-c", WORKER_SCRIPT], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split() == ["pong"], res.stdout
 
 
 def test_no_source_mentions_jax_imports():

@@ -200,14 +200,14 @@ def test_planner_copy_places_like_reference():
 
 
 def test_unported_options_raise(port_model):
-    """int8 KV pools (also beside a draft model) and the wall-clock loop
-    are refused, each naming its ROADMAP item."""
+    """int8 KV pools (also beside a draft model, and on the wall clock)
+    are refused, naming their ROADMAP item."""
     cfg, params = port_model
     p = port_plan(cfg, {"n0": (0, 2), "n1": (2, 4)})
     for kw, item in ((dict(kv_dtype="int8"), 1),
                      (dict(kv_dtype="int8", draft_cfg=cfg,
                            draft_params=params), 1),
-                     (dict(realtime=True), 6)):
+                     (dict(kv_dtype="int8", realtime=True), 1)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             ClusterRuntime(cfg, params, p, EC, device="cpu", **kw)
 
