@@ -6,11 +6,12 @@
 Phases (any failure raises and the script exits non-zero):
   1. device   — prints the card's name and power limit (nvidia-smi); TF32
                 off for matmuls and convolutions.
-  2. build    — compiles both kernels (paged_attention.cu, K1, and
-                flash_attention.cu, K2) with nvcc for sm_90a from
-                ``src/repro_torch/csrc``, the two builds started together;
-                prints each instance's registers, shared memory and spills
-                (-Xptxas -v); an instance that spills fails the run.
+  2. build    — compiles the three kernel sources (paged_attention.cu,
+                K1; flash_attention.cu, K2; flash_attention_bwd.cu, K2's
+                backward) with nvcc for sm_90a from ``src/repro_torch/csrc``,
+                the three builds started together; prints each instance's
+                registers, shared memory and spills (-Xptxas -v); an
+                instance that spills fails the run.
   3. K1       — paged decode attention (split-K) against its plain PyTorch
                 version on the card, f32 / bf16 / int8 + scales with f32 or
                 bf16 q: smoke and full smollm shapes with ragged lengths (1,
@@ -183,6 +184,34 @@ Phases (any failure raises and the script exits non-zero):
                 params' bytes and each worker's init time.  Phase 10 then
                 repeats (j) and (l) in f32 at 4 layers over cuda workers:
                 tokens equal to the port's CPU in-process run.
+  14. training — runs after the kernel timings.  (n) K2's backward (three
+                kernels a call: prep, dK/dV, dQ) against its plain version
+                on the card: every mask at every D 16/64/128 x G 1/3/4 x
+                Sq = Sk in {1, 37, 64, 65, 511}, B 1 or 3 in turn; Sq != Sk
+                both ways, rows that see no key (exactly 0); fused-qkv
+                (B,S,H,D) views through the autograd function, and (o)'s
+                own shape (B=8, S=512, H=15, KH=5, D=64, causal) in the
+                model layout through it.  f32: atol
+                = rtol = 1e-4; bf16: each element within 2**-7 x |plain| +
+                2**-10 x max|plain| of its tensor + 1e-5.  Timed (kernel,
+                CUDA graph, plain, SDPA's backward as the yardstick) at the
+                training shape B=8, H=15, KH=5, S=512, D=64 and at K2's
+                timing shapes.  (o) full-width smollm-360m in bf16 through
+                ``make_train_step``: AdamW (lr 3e-3, warmup 5, no weight
+                decay) 30 steps on one 8 x 512 batch from ``make_batch``
+                (finite; mean of the last 5 losses below the first 5's),
+                one Adafactor step (finite), remat "none" and "full" over 4
+                steps (losses and final params bit-equal), one step at
+                microbatches 2; per step exactly: K2 forward launches ==
+                layers x microbatches (x 2 under "full"), K2 backward ==
+                layers x microbatches x 3, K1 none; step time, training
+                tokens/s and peak memory printed.  Then ``python -m
+                repro_torch.launch.train`` as subprocesses (batch 4, seq
+                256): 4 steps, beside 2 steps + ``--resume`` + 2: the two
+                final checkpoints are the same bytes.  Phase 10 then runs
+                (p): three AdamW steps (lr 1e-4) of the f32 model at 4
+                layers on cuda and on the CPU: losses and params within
+                1e-3, each leaf's update within 5e-2 in norm.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
@@ -194,6 +223,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import socket
 import struct
 import subprocess
@@ -211,7 +241,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as k2_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_ref)
+    flash_attention, flash_attention_bwd_ref, flash_attention_ref)
 from repro_torch.kernels.paged_attention import kernel as k1  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ref)
@@ -225,7 +255,7 @@ from repro_torch.core.mix_planner import (  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.worker import run_worker  # noqa: E402
 from repro_torch.models import init  # noqa: E402
-from repro_torch.models.common import map_tree  # noqa: E402
+from repro_torch.models.common import map_tree, tree_leaves  # noqa: E402
 from repro_torch.serving.autoscaler import Autoscaler  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
 from repro_torch.serving.frontend import Frontend  # noqa: E402
@@ -235,6 +265,9 @@ from repro_torch.serving.stage_engine import (  # noqa: E402
     PagedStageEngine, StageEngine, _StageEngineBase)
 from repro_torch.serving.transport import (  # noqa: E402
     RemoteStageEngine, WorkerChannel)
+from repro_torch.training import (DataConfig, OptimizerConfig,  # noqa: E402
+                                  TrainConfig, init_train_state, make_batch,
+                                  make_train_step)
 
 K1_F32_TOL = dict(atol=1e-5, rtol=1e-5)   # the same fp32 math, other order
 # bf16 output: kernel and plain version both compute in fp32 and round once,
@@ -816,6 +849,454 @@ def k2_timings():
 
 
 # ---------------------------------------------------------------------------
+# K2's backward and training (phase 14)
+# ---------------------------------------------------------------------------
+
+KB_F32_TOL = 1e-4       # atol = rtol: the same fp32 math in another order
+# bf16 gradients, per element: one bf16 rounding of that element (<= 2**-7
+# x |plain|), plus KB_BF16_MAX_REL x max|plain| of the gradient tensor for
+# the fp32 sums taken in another order (their terms cancel: each row of dS
+# sums to 0), plus KB_BF16_ATOL for tensors that are 0 up to rounding (one
+# key: dS = P (dP - delta) = 0)
+KB_BF16_MAX_REL = 2.0 ** -10
+KB_BF16_ATOL = 1e-5
+KB_SEQS = (1, 37, 64, 65, 511)
+
+
+def kb_check(name, q, k, v, mask, *, bshd=False):
+    """K2's backward against its plain version on the same inputs (o from
+    K2's forward kernel, do random).  ``bshd``: through the autograd
+    function in the model layout (strided views), as training calls it.
+    Returns (max abs error, worst error over its limit); a case out of
+    bounds is printed and fails the run."""
+    kw = K2_MASKS[mask]
+    gen = torch.Generator(device=DEVICE).manual_seed(q.shape[2] * 7 + 1)
+    do = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+    hm = [x.transpose(1, 2) for x in (q, k, v, do)] if bshd else \
+        [q, k, v, do]
+    o = flash_attention(*hm[:3], **kw)
+    if bshd:
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = k2_ops.flash_attention_bshd(*leaves, **kw)
+        got = [g.transpose(1, 2) for g in
+               torch.autograd.grad(out, leaves, do)]
+    else:
+        got = k2.flash_attention_bwd(*hm[:3], o, hm[3], **kw)
+    want = flash_attention_bwd_ref(*hm[:3], o, hm[3], **kw)
+    sync()
+    err = worst = 0.0
+    ok = True
+    for g, w in zip(got, want):
+        diff = (g.float() - w.float()).abs()
+        ref = w.float().abs()
+        if q.dtype == torch.float32:
+            limit = KB_F32_TOL + KB_F32_TOL * ref
+        else:
+            limit = (BF16_REL * ref + KB_BF16_MAX_REL * ref.max()
+                     + KB_BF16_ATOL)
+        err = max(err, diff.max().item())
+        worst = max(worst, (diff / limit).max().item())
+        ok = ok and bool(torch.isfinite(g.float()).all())
+    ok = ok and worst <= 1.0
+    if not ok:
+        print(f"  {name} {mask}: max|kernel-plain| = {err:.3e}, worst "
+              f"err/limit {worst:.3f} FAIL")
+    require(ok, f"flash_attention_bwd disagrees with its plain version on "
+                f"{name} {mask}: max abs err {err}, worst err/limit {worst}")
+    return err, worst, got
+
+
+def kb_checks():
+    """K2's backward over the forward's grid without S = 2048 (every mask
+    at every D 16/64/128 x G 1/3/4 x S in KB_SEQS, B 1 or 3 in turn), Sq !=
+    Sk both ways (rows that see no key among them: window 100 with Sq >
+    Sk + 99), and the model layout through the autograd function; f32 and
+    bf16, and the training step's own shape (phase 14 (o)'s batch, causal)
+    in the model layout.  Rows that see no key get exactly 0.  Every call
+    counts BWD_KERNELS launches.  Returns (max abs error, worst error over its
+    limit of each dtype)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    groups = {}
+    before = k2.bwd_launches
+
+    def run(dt, key, name, *args, **kw):
+        err, worst, got = kb_check(name, *args, **kw)
+        groups.setdefault((dt, key), []).append((err, worst, name))
+        return got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        n = 0
+        for D, G, S in itertools.product((16, 64, 128), (1, 3, 4), KB_SEQS):
+            for mask in K2_MASKS:
+                B = (1, 3)[n % 2]
+                n += 1
+                KH = 2 if D == 16 else 5 if D == 64 else 2
+                q, k, v = k2_inputs(B, KH * G, KH, S, S, D, dtype, gen)
+                run(dt, f"D={D}", f"{dt} B={B} H={KH * G} KH={KH} S={S} "
+                    f"D={D}", q, k, v, mask)
+        for Sq, Sk in ((37, 511), (511, 37), (65, 300), (300, 65),
+                       (1, 100), (100, 1)):
+            for mask in K2_MASKS:
+                q, k, v = k2_inputs(2, 15, 5, Sq, Sk, 64, dtype, gen)
+                dq, _, _ = run(dt, "Sq!=Sk", f"{dt} B=2 H=15 KH=5 Sq={Sq} "
+                               f"Sk={Sk} D=64", q, k, v, mask)
+                w = K2_MASKS[mask]["window"]
+                if w and Sq > Sk + w - 1:       # rows that see no key
+                    require(not dq[:, :, Sk + w - 1:].any(),
+                            "flash_attention_bwd: a row that sees no key "
+                            "got a gradient")
+        for S, D, H, KH in ((511, 64, 15, 5), (300, 128, 8, 2)):
+            for mask in K2_MASKS:
+                qkv = torch.randn(2, S, H + 2 * KH, D, generator=gen,
+                                  device=DEVICE).to(dtype)
+                q, k, v = (qkv[:, :, :H], qkv[:, :, H:H + KH],
+                           qkv[:, :, H + KH:])
+                run(dt, "(B,S,H,D)", f"{dt} autograd, fused-qkv views S={S} "
+                    f"H={H} KH={KH} D={D}", q, k, v, mask, bshd=True)
+        B, H, KH, S, D = KB_TIMING_SHAPES["train"]     # as training calls it
+        q = torch.randn(B, S, H, D, generator=gen, device=DEVICE).to(dtype)
+        k, v = (torch.randn(B, S, KH, D, generator=gen,
+                            device=DEVICE).to(dtype) for _ in range(2))
+        run(dt, "train", f"{dt} autograd, training shape B={B} S={S} H={H} "
+            f"KH={KH} D={D}", q, k, v, "causal", bshd=True)
+    for (dt, key), rows in groups.items():
+        err, worst, name = max(rows, key=lambda r: r[1])
+        print(f"  {dt:<9} {key:<10} {len(rows):>3} cases: max|kernel-plain| "
+              f"= {max(r[0] for r in rows):.3e}, worst err/limit "
+              f"{worst:.3f} ({name})")
+    n_cases = sum(map(len, groups.values()))
+    require(k2.bwd_launches - before == k2.BWD_KERNELS * n_cases,
+            f"{k2.bwd_launches - before} backward launches for {n_cases} "
+            f"cases, not {k2.BWD_KERNELS} each")
+    worst = {dt: max(w for (d, _), rows in groups.items() if d == dt
+                     for _, w, _ in rows) for dt in ("float32", "bfloat16")}
+    print(f"  {n_cases} cases, all within their bounds; worst err/limit f32 "
+          f"{worst['float32']:.3f} (atol = rtol = {KB_F32_TOL:g}), bf16 "
+          f"{worst['bfloat16']:.3f} (2**-7 x |plain| + 2**-10 x max|plain| "
+          f"+ {KB_BF16_ATOL:g}); {k2.BWD_KERNELS} launches a call")
+    err = max(e for rows in groups.values() for e, _, _ in rows)
+    return err, worst
+
+
+def kb_bound(q, k, causal):
+    """Least time of the backward: its bytes (q, o, do read once and dq
+    written once: 4 q-sized; k, v read once and dk, dv written once: 4
+    k-sized) over HBM bandwidth vs its five products, 2.5x the forward's
+    FLOPs (10*D per visible pair per query head), at the dtype's peak; the
+    larger bounds it."""
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+    flops = 2.5 * k2_work(q, k, causal)[1]
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops
+
+
+KB_TIMING_SHAPES = {       # key -> (B, H, KH, S, D), causal, bf16
+    "train": (8, 15, 5, 512, 64),       # phase 14's training batch
+    "S511": (1, 15, 5, 511, 64),
+    "S4096": (1, 15, 5, 4096, 64),
+    "D128_S4096": (1, 32, 8, 4096, 128),
+}
+
+
+def kb_timings():
+    """K2's backward (causal, bf16) at the training shape and at K2's
+    timing shapes: CUDA events around each call (the host's launch
+    included), in turns with its plain version and with the backward of
+    ``scaled_dot_product_attention`` (autograd of the same function, the
+    yardstick; the port never calls it), then without the host's launch
+    (``graph_ms``), beside its bound."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for key, (B, H, KH, S, D) in KB_TIMING_SHAPES.items():
+        q, k, v = k2_inputs(B, H, KH, S, S, D, torch.bfloat16, gen)
+        o = flash_attention(q, k, v, causal=True)
+        do = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+
+        def kernel():
+            return k2.flash_attention_bwd(q, k, v, o, do, causal=True)
+
+        def library():
+            return torch.autograd.grad(lib_out, leaves, do,
+                                       retain_graph=True)
+
+        t = time_turns({
+            "kernel": (kernel, 20), "library": (library, 20),
+            "plain": (lambda: flash_attention_bwd_ref(q, k, v, o, do,
+                                                      causal=True), 3)})
+        dev = graph_ms(kernel, calls=5)
+        bound_ms, bound_by, flops = kb_bound(q, k, True)
+        out[key] = dict(shape=f"B={B} H={H} KH={KH} S={S} D={D} causal bf16",
+                        ms=t["kernel"], plain_ms=t["plain"],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=t["library"], graph_ms=dev,
+                        tflops=flops / dev / 1e9,
+                        graph_bound_share=bound_ms / dev)
+        r = out[key]
+        print(f"  {key} ({r['shape']}): kernel {r['ms']:.4f} ms, in a CUDA "
+              f"graph {dev:.4f} ms = {r['tflops']:.2f} TFLOP/s (five "
+              f"products), {100 * r['graph_bound_share']:.2f}% of the bound "
+              f"{bound_ms:.5f} ms ({bound_by}); sdpa backward "
+              f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms",
+              flush=True)
+        del lib_out, leaves
+    return out
+
+
+# the training phase: the reference's overfit config (tests/
+# test_serving_training.py) on one fixed 8 x 512 batch at full width
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 30
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=5, total_steps=1000, weight_decay=0.0)
+REMAT_STEPS = 4
+# remat "full" recomputes each block's forward in backward with the same
+# deterministic kernels (K2 and its backward use no atomics; cuBLAS on one
+# stream) on the same inputs, so its activations, gradients, losses and
+# params equal remat "none"'s bit for bit: anything else is a wrong
+# recomputation
+DRIVER_ARGV = ["--arch", "smollm_360m", "--batch", "4", "--seq", "256"]
+
+
+def counts():
+    return dict(k2=k2.launches, k2_bwd=k2.bwd_launches, k1=k1.launches)
+
+
+def reset_peak():
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib():
+    return torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if DEVICE == "cuda" else 0.0
+
+
+def train_run(cfg, params, train, batch, steps, name):
+    """``steps`` steps of ``make_train_step`` from ``params`` on one batch;
+    every launch count per step checked: K2 forward = layers x
+    microbatches (x 2 under remat "full"), K2 backward = layers x
+    microbatches x BWD_KERNELS, K1 none.  Returns (params, losses, ms per
+    step)."""
+    step_fn = make_train_step(cfg, train)
+    opt = init_train_state(cfg, train, params)
+    L, mb = cfg.num_layers, train.microbatches
+    want = dict(k2=L * mb * (2 if train.remat == "full" else 1),
+                k2_bwd=L * mb * k2.BWD_KERNELS, k1=0)
+    losses, times = [], []
+    for _ in range(steps):
+        before = counts()
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(m["loss"].item())
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        got = {key: c - before[key] for key, c in counts().items()}
+        require(got == want, f"({name}) launches per step {got}, not {want}")
+    require(all(np.isfinite(losses)), f"({name}) losses {losses}")
+    return params, losses, times
+
+
+def training_phase(cfg, seed, card):
+    """Phase 14 (o): full-width smollm-360m in bf16 through
+    ``make_train_step``; see the module note.  Returns the launch counts
+    of the AdamW run and its rates."""
+    params = init(cfg, seed, device=DEVICE)
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                  batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                       0, device=DEVICE)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    adamw = OptimizerConfig(name="adamw", **TRAIN_OPT)
+    reset_peak()
+    zero_counts()
+    _, losses, times = train_run(cfg, params,
+                                 TrainConfig(optimizer=adamw, remat="none"),
+                                 batch, TRAIN_STEPS, "AdamW")
+    launches = counts()
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    ms = float(np.median(times[1:]))
+    print(f"  AdamW, remat none, {TRAIN_STEPS} steps on one {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(mean of the first 5 {first:.4f}, of the last 5 {last:.4f}); "
+          f"step {ms:.1f} ms median = {tokens / ms * 1e3:.0f} training "
+          f"tokens/s on {card}; peak memory {peak_gib():.2f} GiB; launches "
+          f"{launches}", flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]}")
+    train_profile(cfg, params, TrainConfig(optimizer=adamw, remat="none"),
+                  batch, ms)
+    require(last < first, f"AdamW: mean of the last 5 losses {last} not "
+            f"below the first 5 {first}")
+
+    ada = OptimizerConfig(name="adafactor", **TRAIN_OPT)
+    p1, ada_loss, _ = train_run(cfg, params,
+                                TrainConfig(optimizer=ada, remat="none"),
+                                batch, 1, "Adafactor")
+    require(all(bool(torch.isfinite(x.float()).all())
+                for x in tree_leaves(p1)), "Adafactor: params not finite")
+    print(f"  Adafactor, one step: loss {ada_loss[0]:.4f}, params finite")
+    del p1
+
+    series, step_ms, ends = {}, {}, {}
+    for remat in ("none", "full"):
+        reset_peak()
+        ends[remat], series[remat], t = train_run(
+            cfg, params, TrainConfig(optimizer=adamw, remat=remat), batch,
+            REMAT_STEPS, f"remat {remat}")
+        step_ms[remat] = (float(np.median(t[1:])), peak_gib())
+    same_params = all(map(torch.equal, tree_leaves(ends["none"]),
+                          tree_leaves(ends["full"])))
+    gap = max(abs(a - b) for a, b in zip(series["full"], series["none"]))
+    print(f"  remat none / full, {REMAT_STEPS} steps: losses "
+          f"{series['none']} / {series['full']}, largest gap {gap:.3e}, "
+          f"final params bit-equal: {same_params} (both must be bit-equal); "
+          f"step {step_ms['none'][0]:.1f} / {step_ms['full'][0]:.1f} ms, peak "
+          f"memory {step_ms['none'][1]:.2f} / {step_ms['full'][1]:.2f} GiB")
+    require(series["full"] == series["none"] and same_params,
+            f"remat full's losses {series['full']} or params differ from "
+            f"none's {series['none']}")
+    del ends
+    _, mb_loss, _ = train_run(
+        cfg, params, TrainConfig(optimizer=adamw, remat="none",
+                                 microbatches=2), batch, 1, "microbatches 2")
+    print(f"  microbatches 2, one step: loss {mb_loss[0]:.4f} (one batch: "
+          f"{series['none'][0]:.4f}); launch counts as stated")
+    del params
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    driver_check()
+    return dict(launches=launches, step_ms=ms, tokens_s=tokens / ms * 1e3,
+                loss_first5=first, loss_last5=last,
+                remat_step_ms={k: v[0] for k, v in step_ms.items()},
+                remat_peak_gib={k: v[1] for k, v in step_ms.items()})
+
+
+def train_profile(cfg, params, train, batch, step_ms):
+    """Where a training step's time goes: one AdamW step (after one
+    unprofiled warm-up step) under ``torch.profiler``; device time of
+    every kernel and copy against the unprofiled median step time, K2's
+    and its backward's share, and the kernels with the most device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = make_train_step(cfg, train)
+    opt = init_train_state(cfg, train, params)
+    p1, opt, _ = step_fn(params, opt, batch)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(p1, opt, batch)
+        sync()
+    del p1, opt
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    if not rows:
+        print("  training step: device time not measured (the trace holds "
+              "no device events)")
+        return
+    busy = sum(ms for _, ms, _ in rows)
+    ours = {k: sum(ms for key, ms, _ in rows
+                   if any(n in key for n in names))
+            for k, names in K_NAMES.items()}
+    print(f"  training step profiled: device busy {busy:.1f} ms in "
+          f"{sum(n for _, _, n in rows)} kernels and copies = "
+          f"{100 * busy / step_ms:.1f}% of the unprofiled step {step_ms:.1f} "
+          f"ms; K2 {ours['K2']:.2f} ms ({100 * ours['K2'] / busy:.1f}%), "
+          f"K2-bwd {ours['K2-bwd']:.2f} ms "
+          f"({100 * ours['K2-bwd'] / busy:.1f}%)")
+    for key, ms, n in rows[:8]:
+        print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<6} {key[:90]}")
+
+
+def driver_check():
+    """``python -m repro_torch.launch.train`` as a subprocess: 4 steps in
+    one directory, and (started beside it) 2 steps then ``--resume`` to 4
+    in another; the two final checkpoints (params and optimizer state)
+    must be the same bytes."""
+    tmp = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(tmp, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *DRIVER_ARGV]
+
+    def start(args):
+        return subprocess.Popen(cmd + args, cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+
+    def finish(proc, name):
+        out, _ = proc.communicate(timeout=300)
+        lines = [x for x in out.splitlines() if x.startswith(("step",
+                                                              "resumed"))]
+        print(f"  driver ({name}): " + "; ".join(lines))
+        require(proc.returncode == 0, f"driver ({name}) exited "
+                f"{proc.returncode}:\n{out[-3000:]}")
+
+    t0 = time.perf_counter()
+    whole, half = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    procs = [start(["--steps", "4", "--ckpt-dir", whole]),
+             start(["--steps", "2", "--ckpt-dir", half])]
+    finish(procs[0], "4 steps")
+    finish(procs[1], "2 steps")
+    finish(start(["--steps", "4", "--ckpt-dir", half, "--resume"]),
+           "--resume to 4")
+    a, b = (os.path.join(d, "step_00000004") for d in (whole, half))
+    names = sorted(n for n in os.listdir(a) if n.endswith(".npy"))
+    require(names == sorted(n for n in os.listdir(b) if n.endswith(".npy")),
+            "the two checkpoints hold different leaves")
+    differ = [n for n in names if open(os.path.join(a, n), "rb").read()
+              != open(os.path.join(b, n), "rb").read()]
+    require(not differ, f"4 steps and 2 + --resume + 2 end at different "
+            f"states: {differ}")
+    print(f"  4 steps == 2 steps + --resume + 2 steps: all {len(names)} "
+          f"leaf files (params and AdamW state) equal byte for byte "
+          f"({time.perf_counter() - t0:.1f} s for the three runs)")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def training_cross_check(cfg4, params4):
+    """Phase 14 (p): three AdamW steps of the f32 model at full width and
+    4 layers on cuda and on the CPU (plain versions), same weights and
+    batch: losses within 1e-3 (atol = rtol) and every param within 1e-3;
+    and each leaf's update (params after - before) within 5e-2 of the
+    CPU's in norm.  lr 1e-4, so an element whose gradient sign the two
+    devices' rounding flips moves at most 2e-4 apart a step."""
+    train = TrainConfig(optimizer=OptimizerConfig(
+        name="adamw", lr=1e-4, warmup_steps=1, total_steps=1000),
+        remat="full")
+    dc = DataConfig(vocab_size=cfg4.vocab_size, batch_size=2, seq_len=128)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        params = map_tree(lambda x: x.to(dev), params4)
+        step_fn = make_train_step(cfg4, train)
+        opt = init_train_state(cfg4, train, params)
+        losses = []
+        for s in range(3):
+            params, opt, m = step_fn(params, opt,
+                                     make_batch(dc, s, device=dev))
+            losses.append(m["loss"].item())
+        runs[dev] = (map_tree(lambda x: x.cpu(), params), losses)
+    (pg, lg), (pc, lc) = runs[DEVICE], runs["cpu"]
+    p0 = map_tree(lambda x: x.cpu(), params4)
+    worst = max((a - b).abs().max().item()
+                for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+    upd = max(((a - z) - (b - z)).norm().item() / max((b - z).norm().item(),
+                                                      1e-30)
+              for a, b, z in zip(tree_leaves(pg), tree_leaves(pc),
+                                 tree_leaves(p0)))
+    print(f"  losses cuda {lg}, cpu {lc}; largest param gap {worst:.3e}; "
+          f"largest relative update gap {upd:.3e}")
+    require(np.allclose(lg, lc, atol=1e-3, rtol=1e-3),
+            f"f32 training losses cuda {lg} vs cpu {lc}")
+    require(worst <= 1e-3, f"f32 training params differ by {worst}")
+    require(upd <= 5e-2, f"f32 training updates differ by {upd} in norm")
+
+
+# ---------------------------------------------------------------------------
 # serving + cross-check
 # ---------------------------------------------------------------------------
 
@@ -867,6 +1348,7 @@ def zero_counts():
     k1.split_launches = 0
     k2.launches = 0
     k2.tc_launches = 0
+    k2.bwd_launches = 0
 
 
 def check_requests(cfg, reqs, new_tokens, served=None, rec=None):
@@ -2384,7 +2866,9 @@ def workers_cross_check(cfg4, params4):
 # kernel names as the profiler shows them
 K_NAMES = {"K1": ("paged_attention_split_kernel",
                   "paged_attention_combine_kernel"),
-           "K2": ("flash_attention_tc_kernel", "flash_attention_f32_kernel")}
+           "K2": ("flash_attention_tc_kernel", "flash_attention_f32_kernel"),
+           "K2-bwd": ("fa_bwd_prep_kernel", "fa_bwd_dkdv_kernel",
+                      "fa_bwd_dq_kernel")}
 
 
 def profile_phase(cfg, params, walls):
@@ -2658,28 +3142,36 @@ def ptxas_report(log):
 
 
 def build_all():
-    """Both kernels' nvcc builds, started together.  Prints each instance's
-    registers, shared memory and spills (-Xptxas -v) and any ptxas warning;
-    an instance that spills fails the run."""
+    """The three kernel sources' nvcc builds (K1, K2 and K2's backward),
+    started together.  Prints each instance's registers, shared memory and
+    spills (-Xptxas -v) and any ptxas warning; an instance that spills
+    fails the run."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (k1, k2)))
+    builds = (k1.build, k2.build, k2.build_bwd)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda b: b(), builds))
     print(f"  built {', '.join(os.path.relpath(l, ROOT) for l in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for m in (k1, k2):
-        if not m.build_log:
-            print(f"  {m.__name__}: library built before this run, no ptxas "
+    for label, log in (("paged_attention.cu", k1.build_log),
+                       ("flash_attention.cu", k2.build_log),
+                       ("flash_attention_bwd.cu", k2.bwd_build_log)):
+        if not log:
+            print(f"  {label}: library built before this run, no ptxas "
                   "report")
             continue
-        for line in m.build_log.splitlines():
+        for line in log.splitlines():
             if "warning" in line.lower():
                 print("  " + line.strip())
-        for e in ptxas_report(m.build_log):
+        for e in ptxas_report(log):
             dyn = ""
-            if m is k2:
-                kind, D = re.match(r"flash_attention_(\w+)_kernel<(\d+)>",
-                                   e["name"]).groups()
+            fwd = re.match(r"flash_attention_(\w+)_kernel<(\d+)>", e["name"])
+            if fwd:
+                kind, D = fwd.groups()
                 dyn = f", {k2.smem_bytes(kind == 'tc', int(D))} B dynamic smem"
+            bwd = re.match(r"fa_bwd_(\w+)_kernel<\d,(\d+)>", e["name"])
+            if bwd:
+                kind, D = bwd.groups()
+                dyn = f", {k2.bwd_smem_bytes(kind, int(D))} B dynamic smem"
             split = re.match(r"paged_attention_split_kernel<(\d)", e["name"])
             if split:
                 kv = (torch.float32, torch.bfloat16, torch.int8)[
@@ -2764,6 +3256,15 @@ def main() -> int:
     t1 = kernel_timings(pool_pages)
     t2 = k2_timings()
 
+    phase("training: K2's backward vs plain")
+    t0 = time.perf_counter()
+    kb_err, kb_worst = kb_checks()
+    tb = kb_timings()
+
+    phase("training: full-width smollm-360m in bf16")
+    train = training_phase(cfg, args.seed, card)
+    print(f"  phase 14 (n)-(o) took {time.perf_counter() - t0:.2f} s")
+
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
     params32 = init(cfg32, args.seed, device=DEVICE)
@@ -2782,6 +3283,12 @@ def main() -> int:
           "vs the CPU in-process run")
     t0 = time.perf_counter()
     workers_cross_check(*xcheck_depth(cfg32, params32))
+    print(f"  took {time.perf_counter() - t0:.2f} s")
+
+    phase(f"cross-check f32, {DENSE_XCHECK_LAYERS} layers: three training "
+          "steps, cuda vs cpu")
+    t0 = time.perf_counter()
+    training_cross_check(*xcheck_depth(cfg32, params32))
     print(f"  took {time.perf_counter() - t0:.2f} s")
 
     print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
@@ -2807,6 +3314,7 @@ def main() -> int:
          "cancel_autoscale_launches": {k: v["k1"]
                                        for k, v in cancel_as.items()},
          "workers_launches": {k: v["k1"] for k, v in workers.items()},
+         "train_launches": train["launches"]["k1"],
          "max_abs_err": k1_err, "worst_err_over_limit": k1_worst,
          "ms": main1["ms"], "plain_ms": main1["plain_ms"],
          "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
@@ -2827,12 +3335,31 @@ def main() -> int:
          "cancel_autoscale_launches": {k: v["k2"]
                                        for k, v in cancel_as.items()},
          "workers_launches": {k: v["k2"] for k, v in workers.items()},
+         "train_launches": train["launches"]["k2"],
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
          "library_ms": main2["library_ms"], "tflops": main2["tflops"],
          "bound_share": main2["bound_share"], "shape": main2["shape"],
-         "S4096": t2["S4096"], "D128_S4096": t2["D128_S4096"]}]}
+         "S4096": t2["S4096"], "D128_S4096": t2["D128_S4096"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/attention.py:63 (no Pallas kernel: "
+                     "the reference's autodiff of chunked_attention)",
+         "launches": train["launches"]["k2_bwd"],
+         "kernels_per_call": k2.BWD_KERNELS,
+         "max_abs_err": kb_err, "worst_err_over_limit": kb_worst,
+         "ms": tb["train"]["ms"], "plain_ms": tb["train"]["plain_ms"],
+         "bound_ms": tb["train"]["bound_ms"],
+         "bound_by": tb["train"]["bound_by"],
+         "library_ms": tb["train"]["library_ms"],
+         "graph_ms": tb["train"]["graph_ms"],
+         "graph_bound_share": tb["train"]["graph_bound_share"],
+         "shape": tb["train"]["shape"],
+         **{key: tb[key] for key in tb if key != "train"}}],
+        "training": {key: (float(val) if isinstance(val, np.floating)
+                           else val)
+                     for key, val in train.items() if key != "launches"}}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,14 @@ strided ``out``, so the model layout (B,S,H,D) needs no copy
 (``ops.flash_attention_bshd``).  The bf16 kernel reads q, k and v by TMA,
 which needs 16-byte aligned bases and strides (``tma_strides``); anything
 else raises ``ValueError``.
+
+``flash_attention_bwd`` is the gradient of the same function with respect
+to q, k and v: three kernels of ``repro_torch/csrc/flash_attention_bwd.cu``
+(per-row log-sum-exp and rowsum(dO * O); dK and dV per key tile; dQ per
+query tile), f32 and bf16 inputs, fp32 arithmetic on the CUDA cores.  Its
+plain version is ``ref.flash_attention_bwd_ref``, taken only when every
+tensor lies on the CPU; ``bwd_launches`` counts each of its kernels'
+launches (``BWD_KERNELS`` a call).
 """
 from __future__ import annotations
 
@@ -29,20 +37,26 @@ from typing import Optional
 import torch
 
 from .._nvcc import CSRC, build_library
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 # kernel launches made by ``flash_attention`` (CPU calls do not count):
 # every launch, and the tensor-core (bf16) kernel's alone
 launches = 0
 tc_launches = 0
+# kernel launches made by ``flash_attention_bwd``: BWD_KERNELS a call
+bwd_launches = 0
+BWD_KERNELS = 3
 
 HEAD_DIMS = (16, 64, 128)        # template instances in the source
 _SRC = CSRC / "flash_attention.cu"
 _ENTRY = {torch.float32: "flash_attention_f32_launch",
           torch.bfloat16: "flash_attention_tc_launch"}
+_BWD_SRC = CSRC / "flash_attention_bwd.cu"
 _lib = None
+_bwd_lib = None
 _lock = threading.Lock()
 build_log = ""          # nvcc's output (-Xptxas -v) of the last build here
+bwd_build_log = ""      # the same for the backward's source
 
 
 def build():
@@ -51,6 +65,15 @@ def build():
     global build_log
     lib, log = build_library(_SRC)
     build_log = log or build_log
+    return lib
+
+
+def build_bwd():
+    """Compile the backward's kernels for sm_90a (once per source version)
+    and return the shared library's path."""
+    global bwd_build_log
+    lib, log = build_library(_BWD_SRC)
+    bwd_build_log = log or bwd_build_log
     return lib
 
 
@@ -72,6 +95,33 @@ def _load():
             lib.flash_attention_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def _load_bwd():
+    global _bwd_lib
+    with _lock:
+        if _bwd_lib is None:
+            lib = ctypes.CDLL(str(build_bwd()))
+            fn = lib.flash_attention_bwd_launch
+            fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                           + [ctypes.c_int] * 5
+                           + [ctypes.POINTER(ctypes.c_longlong)]
+                           + [ctypes.c_int] * 2
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            lib.flash_attention_bwd_smem.argtypes = [ctypes.c_int] * 2
+            lib.flash_attention_bwd_smem.restype = ctypes.c_int
+            lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+            lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+            _bwd_lib = lib
+    return _bwd_lib
+
+
+def bwd_smem_bytes(kernel: str, D: int) -> int:
+    """Dynamic shared memory of one block of the backward's ``kernel``
+    ("prep", "dkdv" or "dq") at head dim D, as the library launches it."""
+    return _load_bwd().flash_attention_bwd_smem(
+        ("prep", "dkdv", "dq").index(kernel), D)
 
 
 def smem_bytes(tc: bool, D: int) -> int:
@@ -189,4 +239,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{rc} ({msg})")
     launches += 1
     tc_launches += tc
+    return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        out: Optional[tuple] = None):
+    """Gradient of ``flash_attention`` with respect to q, k and v.
+
+    q, o (the forward's output) and do (the gradient arriving at it):
+    (B,H,Sq,D); k/v: (B,KH,Sk,D); one dtype, f32 or bf16, head_dim
+    contiguous.  Returns (dq, dk, dv) in that dtype, written into ``out``
+    (three tensors of q's, k's and v's shapes, possibly strided views)
+    when given.  CPU tensors run the plain version; CUDA tensors launch
+    the three kernels on the current stream or raise."""
+    global bwd_launches
+    given = (q, k, v, o, do) + tuple(out or ())
+    if all(t.device.type == "cpu" for t in given):
+        res = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                      window=window)
+        if out is None:
+            return res
+        for dst, r in zip(out, res):
+            dst.copy_(r)
+        return tuple(out)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on CUDA or CPU tensors, "
+                         f"got {q.device}")
+    if out is None:
+        out = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                    for t in (q, k, v))
+    dq, dk, dv = out
+    _check(q, k, v, o, window)
+    for t, like in ((do, q), (dq, q), (dk, k), (dv, v)):
+        if t.shape != like.shape or t.dtype != q.dtype:
+            raise ValueError(f"a gradient tensor {tuple(t.shape)} "
+                             f"{t.dtype} does not match {tuple(like.shape)} "
+                             f"{q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"tensors on {t.device} and {q.device}")
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            raise ValueError("flash_attention_bwd needs head_dim contiguous "
+                             f"(stride 1), got strides {t.stride()}")
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    if q.numel() == 0:        # no query: dk = dv = 0, no launch
+        dq.zero_()
+        dk.zero_()
+        dv.zero_()
+        return out
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_longlong * 24)(
+        *[s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+    lib = _load_bwd()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_attention_bwd_launch(
+            int(q.dtype == torch.bfloat16), D, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            B, H, KH, Sq, Sk, strides, int(bool(causal)), int(window),
+            1.0 / math.sqrt(D), stream)
+    if rc != 0:
+        msg = lib.flash_attention_bwd_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"error {rc} ({msg})")
+    bwd_launches += BWD_KERNELS
     return out

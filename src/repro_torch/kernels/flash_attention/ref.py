@@ -1,4 +1,4 @@
-"""Plain PyTorch version of flash prefill attention.
+"""Plain PyTorch version of flash prefill attention and of its gradient.
 
 It follows the numerics of the Pallas kernel
 (``repro/kernels/flash_attention/kernel.py::_kernel``), not of the jnp
@@ -10,6 +10,11 @@ only with a window and Sq > Sk + window - 1 — yields 0 (the Pallas
 kernel's value there depends on its tile size).  The CUDA wrapper runs
 this on CPU tensors, and ``chip_smoke.py`` holds the kernel against it on
 the card.
+
+``flash_attention_bwd_ref`` is the gradient of that function, written out
+in fp32 (it recomputes P; it does not call ``torch.autograd``): the
+reference differentiates the jnp ``chunked_attention`` with autodiff, and
+the port's CUDA backward kernel is held against this.
 """
 from __future__ import annotations
 
@@ -20,6 +25,31 @@ import torch
 NEG_INF = -1e30
 
 
+def _mask(Sq: int, Sk: int, causal: bool, window: int, dev) -> torch.Tensor:
+    """(Sq, Sk) bool: key j is visible from query i, aligned top-left."""
+    qpos = torch.arange(Sq, device=dev)[:, None]
+    kpos = torch.arange(Sk, device=dev)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def _exp_scores(qg: torch.Tensor, k: torch.Tensor, mask: torch.Tensor):
+    """Scores of the pre-scaled fp32 queries ``qg`` (B,KH,G,Sq,D) against k
+    (B,KH,Sk,D), exponentiated against their row max: (B,KH,G,Sq,Sk) fp32,
+    0 where masked, and each row's sum clamped at 1e-30 (a row that sees
+    no key is all 0)."""
+    dev = qg.device
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros((), device=dev))
+    return p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
@@ -28,19 +58,39 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     G = H // KH
-    dev = q.device
     qg = q.float().reshape(B, KH, G, Sq, D) * (1.0 / math.sqrt(D))
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
-    qpos = torch.arange(Sq, device=dev)[:, None]
-    kpos = torch.arange(Sk, device=dev)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
-    if causal:
-        mask &= qpos >= kpos
-    if window:
-        mask &= qpos - kpos < window
-    s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - m), torch.zeros((), device=dev))
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    p, denom = _exp_scores(qg, k, _mask(Sq, Sk, causal, window, q.device))
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / denom
     return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int = 0):
+    """Gradient of ``flash_attention_ref`` with respect to q, k and v.
+
+    q, o, do: (B,H,Sq,D); k/v: (B,KH,Sk,D); ``o`` is the forward's output
+    and ``do`` the gradient arriving at it.  In fp32: P recomputed from q
+    and k, dV = P^T.dO, dP = dO.V^T, dS = P * (dP - delta) with delta =
+    rowsum(dO * o), dQ = dS.K / sqrt(D), dK = dS^T.Q / sqrt(D); the G query
+    heads of a kv head sum into its dK and dV.  A query row that sees no
+    key gets 0 (its output is defined as 0).  Returns (dq, dk, dv) in the
+    dtypes of q, k and v."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, KH, G, Sq, D)
+    dof = do.float().reshape(B, KH, G, Sq, D)
+    p, denom = _exp_scores(qf * scale, k,
+                           _mask(Sq, Sk, causal, window, q.device))
+    p = p / denom
+    delta = (dof * o.float().reshape(B, KH, G, Sq, D)).sum(-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -72,6 +72,26 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list tree in ``jax.tree.leaves`` order
+    (dict keys sorted, lists in order)."""
+    return [leaf for _, leaf in _leaves(tree)]
+
+
+def tree_paths(tree) -> list:
+    """Each leaf's path, as "a/b/0", in ``tree_leaves`` order."""
+    return ["/".join(map(str, path)) for path, _ in _leaves(tree)]
+
+
+def tree_unflatten(template, leaves):
+    """A tree shaped like ``template`` whose leaves are ``leaves``, given in
+    ``tree_leaves`` order."""
+    paths = [path for path, _ in _leaves(template)]
+    if len(paths) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(paths)}")
+    return _rebuild(template, dict(zip(paths, leaves)))
+
+
 def map_tree(fn, tree):
     """Apply ``fn`` to every leaf of a nested dict/list tree."""
     if isinstance(tree, dict):

@@ -1,7 +1,7 @@
 """Model assembly for the dense GQA family — counterpart of
 ``repro.models.model`` (``param_specs`` / ``init``, ``_embed``, ``_logits``,
-``forward``, and the dense serving path: ``init_caches``, ``prefill``,
-``fill_prefill_cache``, ``decode_step``).
+``forward``, ``loss_fn``, and the dense serving path: ``init_caches``,
+``prefill``, ``fill_prefill_cache``, ``decode_step``).
 
 The layer stack is ``prologue + pattern * repeats``; the repeated part keeps
 the reference's layout, params (and dense caches) stacked on a leading
@@ -13,9 +13,11 @@ ported yet and raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+import functools
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from ..configs.base import BlockSpec, ModelConfig
 from .attention import attn_spec, gqa_cache_init, gqa_decode, gqa_prefill
@@ -95,10 +97,23 @@ def _logits(cfg, params, h):
     return torch.einsum("bsd,dv->bsv", h, params["lm_head"])
 
 
-def layer_params(params, r: int, i: int):
-    """Block params of pattern position ``i`` in repeat ``r`` (a view into
-    the stacked ``super`` tree)."""
-    return map_tree(lambda x: x[r], params["super"][f"pos{i}"])
+def super_layers(cfg, params):
+    """Block params of every repeated layer, repeat by repeat: views into
+    the stacked ``super`` tree.  Each stacked leaf is unbound once, so
+    under autograd its gradient is stacked once instead of summed from one
+    full-size tensor a layer."""
+    def split(tree):
+        if isinstance(tree, dict):
+            parts = {k: split(v) for k, v in tree.items()}
+            return [{k: v[r] for k, v in parts.items()}
+                    for r in range(cfg.repeats)]
+        return tree.unbind(0)
+
+    per_pos = [split(params["super"][f"pos{i}"])
+               for i in range(len(cfg.pattern))]
+    for r in range(cfg.repeats):
+        for layers in per_pos:
+            yield layers[r]
 
 
 # ---------------------------------------------------------------------------
@@ -131,22 +146,79 @@ def _blocks(cfg, params):
     repeats."""
     for i, b in enumerate(cfg.prologue):
         yield b, params["prologue"][i]
-    for r in range(cfg.repeats):
-        for i, b in enumerate(cfg.pattern):
-            yield b, layer_params(params, r, i)
+    yield from zip(tuple(cfg.pattern) * cfg.repeats, super_layers(cfg, params))
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B,S) int -> logits (B,S,V).  (The reference also returns a
-    MoE aux loss, which is 0 for this family.)"""
+# remat: how a block keeps its activations for backward — all of them
+# ("none"), none (recomputed in backward: "full"), or the outputs of its
+# matrix products only ("dots"); numbers equal either way
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _block_out(cfg, b, p, h, positions):
+    return _apply_block(cfg, b, p, h, positions)[0]
+
+
+def _run_block(cfg, b, p, h, positions, remat: str):
+    if remat == "none":
+        return _block_out(cfg, b, p, h, positions)
+    if remat == "full":
+        return ckpt.checkpoint(_block_out, cfg, b, p, h, positions,
+                               use_reentrant=False)
+    if remat == "dots":
+        return ckpt.checkpoint(
+            _block_out, cfg, b, p, h, positions, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+
+
+def _forward(cfg: ModelConfig, params, tokens: torch.Tensor,
+             remat: str = "none") -> torch.Tensor:
     check_ported(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     h = _embed(cfg, params, tokens, positions)
     for b, p in _blocks(cfg, params):
-        h, _ = _apply_block(cfg, b, p, h, positions)
+        h = _run_block(cfg, b, p, h, positions, remat)
     h = apply_norm(cfg, params["final_norm"], h)
     return _logits(cfg, params, h)
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (B,S) int -> logits (B,S,V).  (The reference also returns a
+    MoE aux loss, which is 0 for this family.)"""
+    return _forward(cfg, params, tokens)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01, skip_masked_chunks: bool = False, *,
+            remat: str = "none") -> Tuple[torch.Tensor, Dict]:
+    """batch: tokens (B,S), labels (B,S) with -100 = ignore.  Mean
+    cross-entropy over the labelled tokens, from an fp32 log-softmax of the
+    logits.  Returns (loss, {"ce", "aux", "tokens"}); ``aux`` (the MoE
+    load-balance loss) is 0 for this family.  ``skip_masked_chunks`` is
+    accepted and unused, as in ``chunked_attention`` (K2 skips masked
+    tiles by itself); ``remat`` ("none", "full", "dots") sets what each
+    block keeps for backward, not the numbers."""
+    logits = _forward(cfg, params, batch["tokens"], remat)
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    del logits      # backward needs only logp: one copy of the logits lives
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = valid.sum().clamp_min(1)
+    ce = torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": denom.float()}
 
 
 # ---------------------------------------------------------------------------

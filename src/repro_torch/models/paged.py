@@ -20,7 +20,7 @@ import torch
 from ..configs.base import BlockSpec, ModelConfig
 from .attention import gqa_decode_paged, gqa_prefill_paged
 from .common import apply_norm
-from .model import _embed, _logits, check_ported, layer_params
+from .model import _embed, _logits, check_ported, super_layers
 from .moe import ffn_apply
 
 
@@ -79,9 +79,9 @@ def _paged_layers(cfg, params, tables_pro, tables_super):
     """(block params, block table) for every layer, in stack order."""
     for i in range(len(cfg.prologue)):
         yield params["prologue"][i], tables_pro[i]
-    for r in range(cfg.repeats):
-        for i in range(len(cfg.pattern)):
-            yield layer_params(params, r, i), tables_super[r, i]
+    n = len(cfg.pattern)
+    for j, p in enumerate(super_layers(cfg, params)):
+        yield p, tables_super[j // n, j % n]
 
 
 # ---------------------------------------------------------------------------

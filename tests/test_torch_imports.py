@@ -53,7 +53,13 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
               "repro_torch.serving.transport",
               "repro_torch.serving.frontend",
               "repro_torch.launch.worker",
-              "repro_torch.convert"):
+              "repro_torch.convert",
+              "repro_torch.training.data",
+              "repro_torch.training.optimizer",
+              "repro_torch.training.train_step",
+              "repro_torch.training.checkpoint",
+              "repro_torch.launch.steps",
+              "repro_torch.launch.train"):
         assert m in mods, res.stdout
 
 
