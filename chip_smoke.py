@@ -8,10 +8,12 @@ Phases (any failure raises and the script exits non-zero):
                 off for matmuls and convolutions.
   2. build    — compiles the three kernel sources (paged_attention.cu,
                 K1; flash_attention.cu, K2; flash_attention_bwd.cu, K2's
-                backward) with nvcc for sm_90a from ``src/repro_torch/csrc``,
-                the three builds started together; prints each instance's
-                registers, shared memory and spills (-Xptxas -v); an
-                instance that spills fails the run.
+                backward: delta, and dK/dV and dQ on the tensor cores for
+                bf16 or the CUDA cores for f32) with nvcc for sm_90a from
+                ``src/repro_torch/csrc``, the three builds started
+                together; prints each instance's registers, shared memory
+                and spills (-Xptxas -v); an instance that spills fails the
+                run.
   3. K1       — paged decode attention (split-K) against its plain PyTorch
                 version on the card, f32 / bf16 / int8 + scales with f32 or
                 bf16 q: smoke and full smollm shapes with ragged lengths (1,
@@ -39,7 +41,11 @@ Phases (any failure raises and the script exits non-zero):
                 (tensor-core kernel, every bf16 case counted through it):
                 each element within 2**-7 x |plain| + 1e-5 (one output
                 rounding of that element).  Prints the worst error over
-                its limit of each dtype.
+                its limit of each dtype.  Then with ``lse`` requested (f32
+                and bf16, every D and mask, Sq != Sk both ways): ``out``
+                bit-equal to the call without it, one launch, ``lse``
+                within 1e-4 of ``attention_lse_ref`` (log2 domain), +inf
+                exactly on the rows that see no key.
   5. serving  — full-width smollm-360m in bf16 through ``launch/serve.py
                 --cluster A100,L4 --stages 2``: paged (4 x 40-token prompts,
                 16 new tokens; K1 launches == decode passes x paged layers,
@@ -185,18 +191,21 @@ Phases (any failure raises and the script exits non-zero):
                 repeats (j) and (l) in f32 at 4 layers over cuda workers:
                 tokens equal to the port's CPU in-process run.
   14. training — runs after the kernel timings.  (n) K2's backward (three
-                kernels a call: prep, dK/dV, dQ) against its plain version
-                on the card: every mask at every D 16/64/128 x G 1/3/4 x
+                kernels a call: delta, dK/dV, dQ; bf16 on the tensor
+                cores, f32 on the CUDA cores; from the forward's lse)
+                against its plain version (which recomputes lse) on the
+                card: every mask at every D 16/64/128 x G 1/3/4 x
                 Sq = Sk in {1, 37, 64, 65, 511}, B 1 or 3 in turn; Sq != Sk
                 both ways, rows that see no key (exactly 0); fused-qkv
                 (B,S,H,D) views through the autograd function, and (o)'s
                 own shape (B=8, S=512, H=15, KH=5, D=64, causal) in the
                 model layout through it.  f32: atol
                 = rtol = 1e-4; bf16: each element within 2**-7 x |plain| +
-                2**-10 x max|plain| of its tensor + 1e-5.  Timed (kernel,
-                CUDA graph, plain, SDPA's backward as the yardstick) at the
-                training shape B=8, H=15, KH=5, S=512, D=64 and at K2's
-                timing shapes.  (o) full-width smollm-360m in bf16 through
+                2**-10 x max|plain| of its tensor + 1e-5; a call without
+                lse raises ValueError.  Timed (kernel, CUDA graph, plain,
+                SDPA's backward as the yardstick, eager and in a CUDA
+                graph) at the training shape B=8, H=15, KH=5, S=512, D=64
+                and at K2's timing shapes.  (o) full-width smollm-360m in bf16 through
                 ``make_train_step``: AdamW (lr 3e-3, warmup 5, no weight
                 decay) 30 steps on one 8 x 512 batch from ``make_batch``
                 (finite; mean of the last 5 losses below the first 5's),
@@ -241,7 +250,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels.flash_attention import kernel as k2  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as k2_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_bwd_ref, flash_attention_ref)
+    attention_lse_ref, flash_attention, flash_attention_bwd_ref,
+    flash_attention_ref)
 from repro_torch.kernels.paged_attention import kernel as k1  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ref)
@@ -753,6 +763,52 @@ def k2_checks():
     return err, worst
 
 
+K2_LSE_TOL = 1e-4       # log2 domain: the same fp32 sums in another order
+
+
+def k2_lse_checks():
+    """K2's forward with ``lse`` requested (what training asks for), f32
+    and bf16, every D, every mask, S across the tiles and Sq != Sk both ways
+    (rows that see no key among them: Sq = 300, Sk = 65, window 100):
+    ``out`` bit-equal to the call without ``lse``, one launch either way,
+    and ``lse`` within K2_LSE_TOL absolute of ``attention_lse_ref``'s, +inf
+    exactly where the plain version has it.  Returns the largest error."""
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for D, (Sq, Sk), mask in itertools.product(
+                (16, 64, 128), ((1, 1), (129, 129), (511, 511), (300, 65),
+                                (65, 300)), K2_MASKS):
+            kw = K2_MASKS[mask]
+            q, k, v = k2_inputs(2, 6, 2, Sq, Sk, D, dtype, gen)
+            before = k2.launches
+            plain_out = flash_attention(q, k, v, **kw)
+            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=DEVICE)
+            out = flash_attention(q, k, v, lse=lse, **kw)
+            want = attention_lse_ref(q, k, **kw)
+            sync()
+            name = f"{str(dtype)[6:]} Sq={Sq} Sk={Sk} D={D} {mask}"
+            require(k2.launches == before + 2, f"K2 with lse ({name}) "
+                    f"launched {k2.launches - before - 1} kernels, not 1")
+            require(torch.equal(out, plain_out), f"K2's out with lse differs "
+                    f"from its out without ({name})")
+            seen = torch.isfinite(want)
+            require(bool((lse[~seen] == float("inf")).all()) and
+                    bool(torch.isfinite(lse[seen]).all()),
+                    f"K2's lse is not +inf exactly on the rows that see no "
+                    f"key ({name})")
+            err = (lse[seen] - want[seen]).abs().max().item() \
+                if seen.any() else 0.0
+            require(err <= K2_LSE_TOL, f"K2's lse off by {err} ({name})")
+            worst, n = max(worst, err), n + 1
+    print(f"  lse requested: {n} cases (f32 and bf16, D 16/64/128, three "
+          f"masks, S across the tiles, Sq != Sk both ways): out bit-equal "
+          f"to the call without lse, one launch each; max|lse - plain| = "
+          f"{worst:.3e} (limit {K2_LSE_TOL:g}, log2 domain), +inf exactly "
+          f"on the rows that see no key")
+    return worst
+
+
 def k2_work(q, k, causal):
     """The bytes the function must move (q, k, v read once, out written
     once) and its FLOPs, 4*D per visible (query, key) pair per query
@@ -864,24 +920,26 @@ KB_SEQS = (1, 37, 64, 65, 511)
 
 
 def kb_check(name, q, k, v, mask, *, bshd=False):
-    """K2's backward against its plain version on the same inputs (o from
-    K2's forward kernel, do random).  ``bshd``: through the autograd
-    function in the model layout (strided views), as training calls it.
-    Returns (max abs error, worst error over its limit); a case out of
-    bounds is printed and fails the run."""
+    """K2's backward against its plain version on the same inputs (o and
+    lse from K2's forward kernel, do random; the plain version recomputes
+    lse).  ``bshd``: through the autograd function in the model layout
+    (strided views), as training calls it.  Returns (max abs error, worst
+    error over its limit); a case out of bounds is printed and fails the
+    run."""
     kw = K2_MASKS[mask]
     gen = torch.Generator(device=DEVICE).manual_seed(q.shape[2] * 7 + 1)
     do = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
     hm = [x.transpose(1, 2) for x in (q, k, v, do)] if bshd else \
         [q, k, v, do]
-    o = flash_attention(*hm[:3], **kw)
+    lse = torch.empty(hm[0].shape[:3], dtype=torch.float32, device=DEVICE)
+    o = flash_attention(*hm[:3], lse=lse, **kw)
     if bshd:
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         out = k2_ops.flash_attention_bshd(*leaves, **kw)
         got = [g.transpose(1, 2) for g in
                torch.autograd.grad(out, leaves, do)]
     else:
-        got = k2.flash_attention_bwd(*hm[:3], o, hm[3], **kw)
+        got = k2.flash_attention_bwd(*hm[:3], o, hm[3], lse=lse, **kw)
     want = flash_attention_bwd_ref(*hm[:3], o, hm[3], **kw)
     sync()
     err = worst = 0.0
@@ -912,9 +970,11 @@ def kb_checks():
     Sk both ways (rows that see no key among them: window 100 with Sq >
     Sk + 99), and the model layout through the autograd function; f32 and
     bf16, and the training step's own shape (phase 14 (o)'s batch, causal)
-    in the model layout.  Rows that see no key get exactly 0.  Every call
-    counts BWD_KERNELS launches.  Returns (max abs error, worst error over its
-    limit of each dtype)."""
+    in the model layout.  bf16 runs on the tensor-core kernels, f32 on the
+    CUDA-core ones, both from the forward's lse.  Rows that see no key get
+    exactly 0.  Every call counts BWD_KERNELS launches; a call without lse
+    raises ValueError and launches nothing.  Returns (max abs error, worst
+    error over its limit of each dtype)."""
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     groups = {}
     before = k2.bwd_launches
@@ -969,12 +1029,23 @@ def kb_checks():
     require(k2.bwd_launches - before == k2.BWD_KERNELS * n_cases,
             f"{k2.bwd_launches - before} backward launches for {n_cases} "
             f"cases, not {k2.BWD_KERNELS} each")
+    q, k, v = k2_inputs(1, 6, 2, 65, 65, 64, torch.bfloat16, gen)
+    o = flash_attention(q, k, v)
+    try:
+        k2.flash_attention_bwd(q, k, v, o, o)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused and k2.bwd_launches - before == k2.BWD_KERNELS * n_cases,
+            "flash_attention_bwd without lse did not raise ValueError, or "
+            "launched")
     worst = {dt: max(w for (d, _), rows in groups.items() if d == dt
                      for _, w, _ in rows) for dt in ("float32", "bfloat16")}
     print(f"  {n_cases} cases, all within their bounds; worst err/limit f32 "
           f"{worst['float32']:.3f} (atol = rtol = {KB_F32_TOL:g}), bf16 "
           f"{worst['bfloat16']:.3f} (2**-7 x |plain| + 2**-10 x max|plain| "
-          f"+ {KB_BF16_ATOL:g}); {k2.BWD_KERNELS} launches a call")
+          f"+ {KB_BF16_ATOL:g}); {k2.BWD_KERNELS} launches a call; without "
+          f"lse: ValueError, no launch")
     err = max(e for rows in groups.values() for e, _, _ in rows)
     return err, worst
 
@@ -1001,25 +1072,50 @@ KB_TIMING_SHAPES = {       # key -> (B, H, KH, S, D), causal, bf16
 }
 
 
+def sdpa_bwd_graph_ms(leaves, do, calls=5):
+    """SDPA's backward alone without the host's launch: the forward runs
+    once on a stream of its own, outside the graph, and ``calls`` backward
+    calls are captured on that stream (autograd runs each backward op on
+    its forward op's stream), replayed and timed as in ``graph_ms``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        # leaves of its own, whose gradient accumulators live on this
+        # stream too
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            torch.autograd.grad(out, leaves, do, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    return time_ms(graph.replay, reps=10, warmup=1) / calls
+
+
 def kb_timings():
     """K2's backward (causal, bf16) at the training shape and at K2's
     timing shapes: CUDA events around each call (the host's launch
     included), in turns with its plain version and with the backward of
     ``scaled_dot_product_attention`` (autograd of the same function, the
-    yardstick; the port never calls it), then without the host's launch
-    (``graph_ms``), beside its bound."""
+    yardstick; the port never calls it), then both without the host's
+    launch (``graph_ms``, ``sdpa_bwd_graph_ms``), beside its bound; the
+    kernel's time over SDPA's, eager and in a graph."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
     for key, (B, H, KH, S, D) in KB_TIMING_SHAPES.items():
         q, k, v = k2_inputs(B, H, KH, S, S, D, torch.bfloat16, gen)
-        o = flash_attention(q, k, v, causal=True)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=DEVICE)
+        o = flash_attention(q, k, v, causal=True, lse=lse)
         do = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
 
         def kernel():
-            return k2.flash_attention_bwd(q, k, v, o, do, causal=True)
+            return k2.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                          lse=lse)
 
         def library():
             return torch.autograd.grad(lib_out, leaves, do,
@@ -1030,20 +1126,26 @@ def kb_timings():
             "plain": (lambda: flash_attention_bwd_ref(q, k, v, o, do,
                                                       causal=True), 3)})
         dev = graph_ms(kernel, calls=5)
+        lib_dev = sdpa_bwd_graph_ms(leaves, do)
         bound_ms, bound_by, flops = kb_bound(q, k, True)
         out[key] = dict(shape=f"B={B} H={H} KH={KH} S={S} D={D} causal bf16",
                         ms=t["kernel"], plain_ms=t["plain"],
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=t["library"], graph_ms=dev,
+                        library_graph_ms=lib_dev,
                         tflops=flops / dev / 1e9,
-                        graph_bound_share=bound_ms / dev)
+                        graph_bound_share=bound_ms / dev,
+                        over_library=t["kernel"] / t["library"],
+                        graph_over_library=dev / lib_dev)
         r = out[key]
         print(f"  {key} ({r['shape']}): kernel {r['ms']:.4f} ms, in a CUDA "
               f"graph {dev:.4f} ms = {r['tflops']:.2f} TFLOP/s (five "
               f"products), {100 * r['graph_bound_share']:.2f}% of the bound "
               f"{bound_ms:.5f} ms ({bound_by}); sdpa backward "
-              f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms",
-              flush=True)
+              f"{r['library_ms']:.4f} ms, in a CUDA graph {lib_dev:.4f} ms; "
+              f"kernel / sdpa {r['over_library']:.2f}x eager, "
+              f"{r['graph_over_library']:.2f}x in a graph; plain "
+              f"{r['plain_ms']:.4f} ms", flush=True)
         del lib_out, leaves
     return out
 
@@ -1209,6 +1311,10 @@ def train_profile(cfg, params, train, batch, step_ms):
           f"ms; K2 {ours['K2']:.2f} ms ({100 * ours['K2'] / busy:.1f}%), "
           f"K2-bwd {ours['K2-bwd']:.2f} ms "
           f"({100 * ours['K2-bwd'] / busy:.1f}%)")
+    print("  K2-bwd by kernel: " + ", ".join(
+        f"{name} {ms:.2f} ms x{n}" for name in K_NAMES["K2-bwd"]
+        for ms, n in [(sum(m for key, m, _ in rows if name in key),
+                       sum(c for key, _, c in rows if name in key))] if n))
     for key, ms, n in rows[:8]:
         print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<6} {key[:90]}")
 
@@ -2867,8 +2973,9 @@ def workers_cross_check(cfg4, params4):
 K_NAMES = {"K1": ("paged_attention_split_kernel",
                   "paged_attention_combine_kernel"),
            "K2": ("flash_attention_tc_kernel", "flash_attention_f32_kernel"),
-           "K2-bwd": ("fa_bwd_prep_kernel", "fa_bwd_dkdv_kernel",
-                      "fa_bwd_dq_kernel")}
+           "K2-bwd": ("fa_bwd_delta_kernel", "fa_bwd_dkdv_tc_kernel",
+                      "fa_bwd_dq_tc_kernel", "fa_bwd_dkdv_f32_kernel",
+                      "fa_bwd_dq_f32_kernel")}
 
 
 def profile_phase(cfg, params, walls):
@@ -3168,7 +3275,8 @@ def build_all():
             if fwd:
                 kind, D = fwd.groups()
                 dyn = f", {k2.smem_bytes(kind == 'tc', int(D))} B dynamic smem"
-            bwd = re.match(r"fa_bwd_(\w+)_kernel<\d,(\d+)>", e["name"])
+            bwd = re.match(r"fa_bwd_(\w+)_kernel<(?:\d,)?(\d+)>",
+                           e["name"])
             if bwd:
                 kind, D = bwd.groups()
                 dyn = f", {k2.bwd_smem_bytes(kind, int(D))} B dynamic smem"
@@ -3211,6 +3319,7 @@ def main() -> int:
 
     phase("kernel K2: flash_attention vs plain")
     k2_err, k2_worst = k2_checks()
+    k2_lse_err = k2_lse_checks()
 
     args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE])
     cfg = serve.build_config(args)
@@ -3337,6 +3446,7 @@ def main() -> int:
          "workers_launches": {k: v["k2"] for k, v in workers.items()},
          "train_launches": train["launches"]["k2"],
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
+         "lse_max_abs_err": k2_lse_err,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
          "library_ms": main2["library_ms"], "tflops": main2["tflops"],
@@ -3354,6 +3464,7 @@ def main() -> int:
          "bound_by": tb["train"]["bound_by"],
          "library_ms": tb["train"]["library_ms"],
          "graph_ms": tb["train"]["graph_ms"],
+         "library_graph_ms": tb["train"]["library_graph_ms"],
          "graph_bound_share": tb["train"]["graph_bound_share"],
          "shape": tb["train"]["shape"],
          **{key: tb[key] for key in tb if key != "train"}}],

@@ -62,22 +62,19 @@
 //    * the epilogue divides by max(l, 1e-30), rounds once to bf16 (RNE) and
 //      writes bf16 pairs through the output's strides.
 //
+// Both kernels write, when given an ``lse`` array (training asks for it),
+// each row's log-sum-exp in the log2 domain, ms + log2(l) in the tensor-
+// core kernel's terms (+inf for a row that sees no key), for the backward
+// (flash_attention_bwd.cu), which then recomputes no row sum; with a null
+// pointer nothing else changes.
+//
 // f32: flash_attention_f32_kernel, on the CUDA cores (the first port's
 //   design, kept for f32 inputs, which it matches to 1e-5): one block per
 //   (64-row query tile, query head, batch), 256 threads as a 16 x 16 grid,
 //   fp32 FMAs; K rows padded to D + 1 floats in shared memory.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;
-
-struct Strides {
-  long long b, h, s;            // element strides; d is contiguous
-};
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
@@ -100,9 +97,10 @@ __host__ __device__ constexpr size_t smem_bytes(int D) {
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int H, int KH,
-    int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-    int causal, int window, float scale) {
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int H, int KH, int Sq, int Sk, Strides qs,
+    Strides ks, Strides vs, Strides os, int causal, int window,
+    float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kTile + 1;
   constexpr int DC = D / 16;    // accumulator columns per thread
@@ -236,12 +234,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 #pragma unroll
     for (int j = 0; j < DC; ++j)
       ob[qpos * os.s + tx + 16 * j] = acc[i][j] * inv;
+    // log2 of the row's sum of exp(scaled score); +inf for a row that
+    // sees no key (l = 0), so the backward's P = exp2(s - lse) is 0 there
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * Sq + qpos] =
+          l[i] > 0.f ? fmaf(m[i], tc::kLog2e, log2f(l[i])) : tc::inf();
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int B, int H, int KH, int Sq, int Sk,
+                       void* out, float* lse, int B, int H, int KH, int Sq,
+                       int Sk,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        int causal, int window, float scale,
                        cudaStream_t stream) {
@@ -255,8 +259,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   dim3 grid((Sq + kTile - 1) / kTile, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, KH, Sq, Sk,
-      qs, ks, vs, os, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, KH, Sq,
+      Sk, qs, ks, vs, os, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -272,22 +276,16 @@ constexpr int kThreads = 384;   // producer warpgroup + 2 consumer groups
 constexpr int kConsumerWarps = 8;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;   // 128*40 + 256*232 <= 65536
-constexpr float kLog2e = 1.4426950408889634f;
 
-// Per head dim: a tile row of D bf16 is stored as kParts blocks of kCols
-// columns (one TMA box each), every block swizzled like the wgmma
-// descriptors say: 128 B rows at D = 64 and 128, 32 B rows at D = 16.
+// Per head dim (tile rows stored as hopper.cuh's Rows<D> says):
 template <int D>
-struct Cfg {
+struct Cfg : Rows<D> {
+  using R = Rows<D>;
   // keys per kv tile; at D = 128, 128-key tiles spill registers (ptxas
   // gives every instance 168), so that instance takes 64
   static constexpr int kBN = D == 128 ? 64 : 128;
-  static constexpr int kCols = D < 64 ? D : 64;
-  static constexpr int kParts = D / kCols;
-  static constexpr int kRowBytes = kCols * 2;
-  static constexpr uint64_t kLayout = D < 64 ? 3 : 1;   // 32 B / 128 B
-  static constexpr int kPartQ = kBM * kRowBytes;
-  static constexpr int kPartKV = kBN * kRowBytes;
+  static constexpr int kPartQ = kBM * R::kRowBytes;
+  static constexpr int kPartKV = kBN * R::kRowBytes;
   static constexpr int kQBytes = kBM * D * 2;
   static constexpr int kKVBytes = kBN * D * 2;
   static constexpr int kK = kQBytes;               // offsets from the base
@@ -297,202 +295,6 @@ struct Cfg {
   static constexpr int kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;  // + align
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done;
-}
-
-// Wait for the phase of parity ``parity`` to complete.  A wait of more than
-// ~2**35 cycles (tens of seconds) can only be a lost transfer or arrival:
-// it traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
-
-// one box of the 4-d map (d, s, head, batch) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int d, int s, int h, int b,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(s), "r"(h), "r"(b),
-      "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16 B units) and the swizzle layout (1 = 128 B, 3 = 32 B)
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keep the compiler from moving accesses of wgmma registers across the
-// asynchronous product's issue and wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// operand lists: c is the constraint, "+f" (accumulate) or "=f" (overwrite)
-#define F4(c, d, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
-#define F8(c, d, i) F4(c, d, i), F4(c, d, i + 4)
-#define F32(c, d) F8(c, d, 0), F8(c, d, 8), F8(c, d, 16), F8(c, d, 24)
-#define F64(c, d) \
-  F32(c, d), F8(c, d, 32), F8(c, d, 40), F8(c, d, 48), F8(c, d, 56)
-#define R8 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define R32                                                                  \
-  R8 ", %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "    \
-     "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define R64                                                                  \
-  R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
-      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
-      "%58, %59, %60, %61, %62, %63"
-
-// d (64 x N, fp32) (+)= A (64 x 16) * B (16 x N), bf16 operands.
-//   ss: A and B from shared memory, both K-major; d = A B when first (the
-//       old d is not read, so it need not stay live), else d += A B.
-//   rs: d += A B, A from registers (4 x bf16x2 a thread), B MN-major
-//       (read with the transpose bit).
-template <int N>
-struct Mma;
-
-template <>
-struct Mma<16> {
-  static __device__ __forceinline__ void rs(float (&d)[8],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {" R8 "}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : F8("+f", d, 0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Mma<64> {
-  template <bool first>
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b) {
-    if (first)
-      asm volatile(
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32 "}, "
-          "%32, %33, p, 1, 1, 0, 0;\n}\n"
-          : F32("=f", d)
-          : "l"(a), "l"(b), "r"(0));
-    else
-      asm volatile(
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32 "}, "
-          "%32, %33, p, 1, 1, 0, 0;\n}\n"
-          : F32("+f", d)
-          : "l"(a), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32 "}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : F32("+f", d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Mma<128> {
-  template <bool first>
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
-                                            uint64_t b) {
-    if (first)
-      asm volatile(
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64 "}, "
-          "%64, %65, p, 1, 1, 0, 0;\n}\n"
-          : F64("=f", d)
-          : "l"(a), "l"(b), "r"(0));
-    else
-      asm volatile(
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64 "}, "
-          "%64, %65, p, 1, 1, 0, 0;\n}\n"
-          : F64("+f", d)
-          : "l"(a), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64 "}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : F64("+f", d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-#undef F4
-#undef F8
-#undef F32
-#undef F64
-#undef R8
-#undef R32
-#undef R64
-
 // One consumer warpgroup: 64 query rows [row0_g, row0_g + 64) of the CTA's
 // tile against the n_tiles kv tiles from k_lo.  Thread layout of the wgmma
 // accumulators (64 x N): warp w of the group holds rows 16w + lane/4 and
@@ -501,8 +303,9 @@ struct Mma<128> {
 template <int D>
 __device__ __forceinline__ void consume(
     uint32_t sq, uint32_t sk, uint32_t sv, uint32_t bar, int g,
-    __nv_bfloat16* __restrict__ ob, long long oss, int Sq, int Sk, int q0,
-    int k_lo, int n_tiles, int causal, int window, float scale) {
+    __nv_bfloat16* __restrict__ ob, long long oss, float* __restrict__ lse,
+    int Sq, int Sk, int q0, int k_lo, int n_tiles, int causal, int window,
+    float scale) {
   using C = Cfg<D>;
   constexpr int BN = C::kBN;
   const uint32_t q_full = bar, full_k = bar + 8, full_v = full_k + 8 * kStages,
@@ -536,12 +339,8 @@ __device__ __forceinline__ void consume(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int part = kk * 16 / C::kCols;
-      const int off = (kk * 16 % C::kCols) * 2;
-      const uint64_t qd = desc(qa + part * C::kPartQ + off, 16,
-                               8 * C::kRowBytes, C::kLayout);
-      const uint64_t kd = desc(ka + part * C::kPartKV + off, 16,
-                               8 * C::kRowBytes, C::kLayout);
+      const uint64_t qd = kmajor<D>(qa, C::kPartQ, kk);
+      const uint64_t kd = kmajor<D>(ka, C::kPartKV, kk);
       if (kk == 0)
         Mma<BN>::template ss<true>(s, qd, kd);
       else
@@ -596,19 +395,9 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
 
-    // P = P_hi + P_lo as bf16 A fragments: k-step t takes S registers
-    // 8t .. 8t+7, register pair 2j, 2j+1 into A register j
+    // P = P_hi + P_lo as bf16 A fragments
     uint32_t phi[BN / 16][4], plo[BN / 16][4];
-#pragma unroll
-    for (int t = 0; t < BN / 16; ++t)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float a = s[8 * t + 2 * j], b = s[8 * t + 2 * j + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
-        const float2 hf = __bfloat1622float2(hi);
-        phi[t][j] = bf16x2_bits(hi);
-        plo[t][j] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
-      }
+    split_frags(s, phi, plo);
 
     // O += P_hi V + P_lo V (64 x D), fp32
     mbar_wait(full_v + 8 * st, ph);
@@ -616,8 +405,7 @@ __device__ __forceinline__ void consume(
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < BN / 16; ++t) {
-      const uint64_t vd = desc(va + t * 16 * C::kRowBytes, C::kPartKV,
-                               8 * C::kRowBytes, C::kLayout);
+      const uint64_t vd = mnmajor<D>(va, C::kPartKV, t);
       Mma<D>::rs(o, phi[t], vd);
       Mma<D>::rs(o, plo[t], vd);
     }
@@ -628,11 +416,16 @@ __device__ __forceinline__ void consume(
     if (lane == 0) mbar_arrive(empty + 8 * st);
   }
 
-  // epilogue: full row sums, one division and one bf16 rounding
+  // epilogue: full row sums, one division and one bf16 rounding; with
+  // ``lse``, each row's log2-domain log-sum-exp ms + log2(l) (+inf for a
+  // row that sees no key, l = 0: the backward's P = exp2(s - lse) is 0)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + 8 * r;
+    if (lse != nullptr && c2 == 0 && row < Sq)
+      lse[row] = l[r] > 0.f ? ms[r] + log2f(l[r]) : inf();
     l[r] = fmaxf(l[r], 1e-30f);
   }
 #pragma unroll
@@ -653,8 +446,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-    Strides os, int H, int KH, int Sq, int Sk, int causal, int window,
-    float scale) {
+    float* __restrict__ lse, Strides os, int H, int KH, int Sq, int Sk,
+    int causal, int window, float scale) {
   using C = Cfg<D>;
   constexpr int BN = C::kBN;
   extern __shared__ uint8_t smem_raw[];
@@ -715,64 +508,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
     consume<D>(sq, sk, sv, bar, threadIdx.x / 128 - 1,
-               out + b * os.b + h * os.h, os.s, Sq, Sk, q0, k_lo, n_tiles,
-               causal, window, scale);
+               out + b * os.b + h * os.h, os.s,
+               lse == nullptr ? nullptr : lse + ((long long)b * H + h) * Sq,
+               Sq, Sk, q0, k_lo, n_tiles, causal, window, scale);
   }
 }
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// the 4-d map (d, s, head, batch) of a bf16 tensor, boxes of cols x rows
-bool make_map(CUtensorMap* map, const void* ptr, int D, int cols, int S,
-              int heads, int B, Strides st, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                D < 64 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int kErrTensorMap = -1;
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KH, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int KH, int Sq, int Sk, Strides qs,
+           Strides ks, Strides vs, Strides os, int causal, int window,
+           float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, D, C::kCols, Sq, H, B, qs, kBM) ||
@@ -785,8 +531,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, (Sq + kBM - 1) / kBM);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), os, H, KH, Sq, Sk, causal,
-      window, scale);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, os, H, KH, Sq, Sk,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -805,12 +551,15 @@ extern "C" {
 // CUDA error code (cudaGetLastError() after the launch) or -1 when the
 // tensor maps cannot be built.  D is 16, 64 or 128.  Strides are in
 // elements, in the order (b, h, s) for each of q, k, v and out; d is
-// contiguous.  All pointers are device pointers.
+// contiguous.  ``lse`` is null or a contiguous fp32 (B,H,Sq) array that
+// receives each query row's log2(sum_j exp2(q.k_j * scale * log2(e))) over
+// its visible keys, +inf for a row that sees none.  All pointers are
+// device pointers.
 
 // f32 q, k, v and out: the CUDA-core kernel.
 int flash_attention_f32_launch(int D, const void* q, const void* k,
-                               const void* v, void* out, int B, int H,
-                               int KH, int Sq, int Sk, long long qsb,
+                               const void* v, void* out, void* lse, int B,
+                               int H, int KH, int Sq, int Sk, long long qsb,
                                long long qsh, long long qss, long long ksb,
                                long long ksh, long long kss, long long vsb,
                                long long vsh, long long vss, long long osb,
@@ -821,8 +570,9 @@ int flash_attention_f32_launch(int D, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
-#define ARGS q, k, v, out, B, H, KH, Sq, Sk, qs, ks, vs, os, causal, window, \
-             scale, s
+  float* l2 = static_cast<float*>(lse);
+#define ARGS q, k, v, out, l2, B, H, KH, Sq, Sk, qs, ks, vs, os, causal, \
+             window, scale, s
   switch (D) {
     case 16: return (int)launch_f32<16>(ARGS);
     case 64: return (int)launch_f32<64>(ARGS);
@@ -835,19 +585,20 @@ int flash_attention_f32_launch(int D, const void* q, const void* k,
 // TMA: 16-byte aligned bases, strides that are multiples of 16 bytes
 // (the wrapper checks both); out is written in bf16 pairs.
 int flash_attention_tc_launch(int D, const void* q, const void* k,
-                              const void* v, void* out, int B, int H, int KH,
-                              int Sq, int Sk, long long qsb, long long qsh,
-                              long long qss, long long ksb, long long ksh,
-                              long long kss, long long vsb, long long vsh,
-                              long long vss, long long osb, long long osh,
-                              long long oss, int causal, int window,
-                              float scale, void* stream) {
+                              const void* v, void* out, void* lse, int B,
+                              int H, int KH, int Sq, int Sk, long long qsb,
+                              long long qsh, long long qss, long long ksb,
+                              long long ksh, long long kss, long long vsb,
+                              long long vsh, long long vss, long long osb,
+                              long long osh, long long oss, int causal,
+                              int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (bad_shape(B, H, KH, Sk, window) || (Sq + tc::kBM - 1) / tc::kBM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
+  float* l2 = static_cast<float*>(lse);
   switch (D) {
     case 16: return tc::launch<16>(ARGS);
     case 64: return tc::launch<64>(ARGS);

@@ -8,6 +8,8 @@ flash_attention — blockwise GQA prefill attention, causal / windowed /
                   ``repro_torch/csrc/flash_attention.cu``: bf16 on the
                   tensor cores, wgmma fed by TMA; f32 on the CUDA cores),
                   and its gradient, ``flash_attention_bwd`` (CUDA C++,
-                  ``repro_torch/csrc/flash_attention_bwd.cu``: log-sum-exp,
-                  dK/dV per key tile, dQ per query tile, fp32 CUDA cores)
+                  ``repro_torch/csrc/flash_attention_bwd.cu``: from the
+                  forward's log-sum-exp, delta, dK/dV per key tile, dQ per
+                  query tile; bf16 on the tensor cores, wgmma fed by TMA;
+                  f32 on the CUDA cores)
 """

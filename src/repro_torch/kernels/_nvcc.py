@@ -3,8 +3,9 @@
 Each kernel source in ``repro_torch/csrc/`` is compiled at first use with
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the repository root
 (git-ignored), as a shared library with a plain C entry point that
-``ctypes`` loads.  The library's name carries a hash of its source, so an
-edited source is rebuilt and an unchanged one is reused.
+``ctypes`` loads.  The library's name carries a hash of its source and of
+the headers beside it (``*.cuh``, which the sources include), so an edited
+source or header is rebuilt and an unchanged one is reused.
 """
 from __future__ import annotations
 
@@ -32,10 +33,13 @@ def nvcc() -> str:
 
 
 def build_library(src: Path) -> Tuple[Path, str]:
-    """Compile ``src`` for sm_90a once per source version.  Returns the
-    shared library's path and nvcc's output (-Xptxas -v; empty when the
-    library was already built)."""
-    tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    """Compile ``src`` for sm_90a once per version of it and of the
+    headers.  Returns the shared library's path and nvcc's output (-Xptxas
+    -v; empty when the library was already built)."""
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:12]
     lib = BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if lib.exists():
         return lib, ""

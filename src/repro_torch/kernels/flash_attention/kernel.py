@@ -19,13 +19,19 @@ strided ``out``, so the model layout (B,S,H,D) needs no copy
 which needs 16-byte aligned bases and strides (``tma_strides``); anything
 else raises ``ValueError``.
 
-``flash_attention_bwd`` is the gradient of the same function with respect
-to q, k and v: three kernels of ``repro_torch/csrc/flash_attention_bwd.cu``
-(per-row log-sum-exp and rowsum(dO * O); dK and dV per key tile; dQ per
-query tile), f32 and bf16 inputs, fp32 arithmetic on the CUDA cores.  Its
-plain version is ``ref.flash_attention_bwd_ref``, taken only when every
-tensor lies on the CPU; ``bwd_launches`` counts each of its kernels'
-launches (``BWD_KERNELS`` a call).
+``flash_attention`` also writes, into an optional ``lse`` (B,H,Sq) fp32
+tensor, each query row's log-sum-exp of its scaled scores in the log2
+domain (+inf for a row that sees no key; ``ref.attention_lse_ref``), with
+no extra launch and ``out`` unchanged.  ``flash_attention_bwd`` is the
+gradient of the same function with respect to q, k and v, from that
+``lse``: three kernels of ``repro_torch/csrc/flash_attention_bwd.cu``
+(rowsum(dO * O); dK and dV per key tile; dQ per query tile), bf16 on the
+tensor cores (``wgmma`` fed by TMA, P and dS split into bf16 hi and lo
+parts), f32 on the CUDA cores.  Its plain version is
+``ref.flash_attention_bwd_ref``, taken only when every tensor lies on the
+CPU (where a missing ``lse`` is recomputed); on CUDA tensors ``lse`` is
+required.  ``bwd_launches`` counts each of its kernels' launches
+(``BWD_KERNELS`` a call).
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from typing import Optional
 import torch
 
 from .._nvcc import CSRC, build_library
-from .ref import flash_attention_bwd_ref, flash_attention_ref
+from .ref import (attention_lse_ref, flash_attention_bwd_ref,
+                  flash_attention_ref)
 
 # kernel launches made by ``flash_attention`` (CPU calls do not count):
 # every launch, and the tensor-core (bf16) kernel's alone
@@ -52,6 +59,8 @@ _SRC = CSRC / "flash_attention.cu"
 _ENTRY = {torch.float32: "flash_attention_f32_launch",
           torch.bfloat16: "flash_attention_tc_launch"}
 _BWD_SRC = CSRC / "flash_attention_bwd.cu"
+# the backward's kernels, by index in ``flash_attention_bwd_smem``
+BWD_KERNEL_KINDS = ("delta", "dkdv_f32", "dq_f32", "dkdv_tc", "dq_tc")
 _lib = None
 _bwd_lib = None
 _lock = threading.Lock()
@@ -84,7 +93,7 @@ def _load():
             lib = ctypes.CDLL(str(build()))
             for name in _ENTRY.values():
                 fn = getattr(lib, name)
-                fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                                + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
                                + [ctypes.c_int] * 2
                                + [ctypes.c_float, ctypes.c_void_p])
@@ -118,10 +127,10 @@ def _load_bwd():
 
 
 def bwd_smem_bytes(kernel: str, D: int) -> int:
-    """Dynamic shared memory of one block of the backward's ``kernel``
-    ("prep", "dkdv" or "dq") at head dim D, as the library launches it."""
+    """Dynamic shared memory of one block of the backward's ``kernel`` (one
+    of ``BWD_KERNEL_KINDS``) at head dim D, as the library launches it."""
     return _load_bwd().flash_attention_bwd_smem(
-        ("prep", "dkdv", "dq").index(kernel), D)
+        BWD_KERNEL_KINDS.index(kernel), D)
 
 
 def smem_bytes(tc: bool, D: int) -> int:
@@ -130,7 +139,8 @@ def smem_bytes(tc: bool, D: int) -> int:
     return _load().flash_attention_smem(int(tc), D)
 
 
-def tma_strides(shape, strides, itemsize, data_ptr):
+def tma_strides(shape, strides, itemsize, data_ptr,
+                reader="the bf16 kernel reads by TMA"):
     """The (b, h, s) element strides with which the bf16 kernel reads (q,
     k, v by TMA) or writes (out, in bf16 pairs) a (B, heads, S, D) tensor.
 
@@ -138,23 +148,32 @@ def tma_strides(shape, strides, itemsize, data_ptr):
     it gets the stride of a contiguous tensor of that shape.  TMA needs a
     16-byte aligned base and strides that are positive multiples of 16
     bytes; anything else raises ``ValueError`` (there is no other route for
-    bf16 on the card)."""
+    bf16 on the card).  The backward's 16-byte loads of o and dO need the
+    same, in either dtype: ``reader`` names the reason in the message."""
     B, heads, S, D = shape
     dense = (heads * S * D, S * D, D)
     if data_ptr % 16:
-        raise ValueError(f"the bf16 kernel reads by TMA, which needs a "
-                         f"16-byte aligned base; got address {data_ptr:#x}")
+        raise ValueError(f"{reader}, which needs a 16-byte aligned base; "
+                         f"got address {data_ptr:#x}")
     out = []
     for size, stride, fill in zip((B, heads, S), strides[:3], dense):
         stride = fill if size == 1 else stride
         if stride <= 0 or stride * itemsize % 16:
-            raise ValueError(f"the bf16 kernel reads by TMA, which needs "
-                             f"positive strides of a multiple of 16 bytes; "
-                             f"got element strides {tuple(strides)} "
-                             f"({itemsize} bytes each) for shape "
-                             f"{tuple(shape)}")
+            raise ValueError(f"{reader}, which needs positive strides of a "
+                             f"multiple of 16 bytes; got element strides "
+                             f"{tuple(strides)} ({itemsize} bytes each) for "
+                             f"shape {tuple(shape)}")
         out.append(stride)
     return tuple(out)
+
+
+def _check_lse(lse, q):
+    """``lse`` must be a contiguous fp32 (B,H,Sq) tensor beside q."""
+    if (lse.shape != q.shape[:3] or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 "
+                         f"{tuple(q.shape[:3])} tensor on {q.device}; got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
 
 
 def _check(q, k, v, out, window):
@@ -195,16 +214,23 @@ def _check(q, k, v, out, window):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B,H,Sq,D); k/v: (B,KH,Sk,D), f32 or bf16 -> (B,H,Sq,D) in q's
     dtype (written into ``out`` when given, which may be a strided view).
+    ``lse``, when given (contiguous fp32 (B,H,Sq)), receives each row's
+    log2-domain log-sum-exp (``ref.attention_lse_ref``), which
+    ``flash_attention_bwd`` takes.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the current stream or raise."""
     global launches, tc_launches
-    given = [t for t in (q, k, v, out) if t is not None]
+    given = [t for t in (q, k, v, out, lse) if t is not None]
     if all(t.device.type == "cpu" for t in given):
         res = flash_attention_ref(q, k, v, causal=causal, window=window)
+        if lse is not None:
+            _check_lse(lse, q)
+            lse.copy_(attention_lse_ref(q, k, causal=causal, window=window))
         if out is None:
             return res
         out.copy_(res)
@@ -215,6 +241,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     _check(q, k, v, out, window)
+    if lse is not None:
+        _check_lse(lse, q)
     if out.numel() == 0:      # nothing to compute: no launch, none counted
         return out
     B, H, Sq, D = q.shape
@@ -230,9 +258,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, _ENTRY[q.dtype])(
-            D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-            H, KH, Sq, Sk, *strides, int(bool(causal)), int(window),
-            1.0 / math.sqrt(D), stream)
+            D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, KH, Sq, Sk,
+            *strides, int(bool(causal)), int(window), 1.0 / math.sqrt(D),
+            stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: error "
@@ -245,20 +274,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        out: Optional[tuple] = None):
+                        out: Optional[tuple] = None,
+                        lse: Optional[torch.Tensor] = None):
     """Gradient of ``flash_attention`` with respect to q, k and v.
 
     q, o (the forward's output) and do (the gradient arriving at it):
     (B,H,Sq,D); k/v: (B,KH,Sk,D); one dtype, f32 or bf16, head_dim
-    contiguous.  Returns (dq, dk, dv) in that dtype, written into ``out``
+    contiguous; lse: the forward's ``lse`` output (contiguous fp32
+    (B,H,Sq)).  Returns (dq, dk, dv) in that dtype, written into ``out``
     (three tensors of q's, k's and v's shapes, possibly strided views)
-    when given.  CPU tensors run the plain version; CUDA tensors launch
-    the three kernels on the current stream or raise."""
+    when given.  CPU tensors run the plain version, which recomputes a
+    missing ``lse``; CUDA tensors need ``lse`` (``ValueError`` without
+    it: nothing recomputes it there) and launch the three kernels on the
+    current stream or raise.  bf16 tensors are read by TMA and the
+    gradients written in bf16 pairs, and o and do (either dtype) in
+    16-byte loads: those bases 16-byte aligned and strides a multiple of
+    16 bytes, else ``ValueError``."""
     global bwd_launches
-    given = (q, k, v, o, do) + tuple(out or ())
+    given = (q, k, v, o, do) + tuple(out or ()) + (
+        () if lse is None else (lse,))
     if all(t.device.type == "cpu" for t in given):
+        if lse is not None:
+            _check_lse(lse, q)
         res = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                      window=window)
+                                      window=window, lse=lse)
         if out is None:
             return res
         for dst, r in zip(out, res):
@@ -282,6 +321,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1 and t.shape[3] > 1:
             raise ValueError("flash_attention_bwd needs head_dim contiguous "
                              f"(stride 1), got strides {t.stride()}")
+    if lse is None:
+        raise ValueError("flash_attention_bwd on CUDA tensors needs the "
+                         "forward's lse (flash_attention(..., lse=...))")
+    _check_lse(lse, q)
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     if q.numel() == 0:        # no query: dk = dv = 0, no launch
@@ -289,10 +332,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dk.zero_()
         dv.zero_()
         return out
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    strides = (ctypes.c_longlong * 24)(
-        *[s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+    bf16 = q.dtype == torch.bfloat16
+    strides = []
+    for t in (q, k, v, o, do, dq, dk, dv):
+        if bf16:
+            strides += tma_strides(t.shape, t.stride(), t.element_size(),
+                                   t.data_ptr())
+        elif t is o or t is do:       # the delta kernel's 16-byte loads
+            strides += tma_strides(t.shape, t.stride(), t.element_size(),
+                                   t.data_ptr(), reader="the backward reads "
+                                   "o and dO in 16-byte loads")
+        else:
+            strides += t.stride()[:3]
+    strides = (ctypes.c_longlong * 24)(*strides)
     lib = _load_bwd()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -11,18 +11,26 @@ kernel's value there depends on its tile size).  The CUDA wrapper runs
 this on CPU tensors, and ``chip_smoke.py`` holds the kernel against it on
 the card.
 
+``attention_lse_ref`` is what the kernels write into the forward's
+optional ``lse`` output: each query row's log-sum-exp of its scaled, masked
+scores, in the log2 domain (the kernels' exponentials are exp2), and +inf
+for a row that sees no key.
+
 ``flash_attention_bwd_ref`` is the gradient of that function, written out
-in fp32 (it recomputes P; it does not call ``torch.autograd``): the
-reference differentiates the jnp ``chunked_attention`` with autodiff, and
-the port's CUDA backward kernel is held against this.
+in fp32 (it recomputes P from the scores and the log-sum-exp, taking the
+forward's when given; it does not call ``torch.autograd``): the reference
+differentiates the jnp ``chunked_attention`` with autodiff, and the port's
+CUDA backward kernels are held against this.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int, dev) -> torch.Tensor:
@@ -37,17 +45,44 @@ def _mask(Sq: int, Sk: int, causal: bool, window: int, dev) -> torch.Tensor:
     return mask
 
 
-def _exp_scores(qg: torch.Tensor, k: torch.Tensor, mask: torch.Tensor):
+def _scores(qg: torch.Tensor, k: torch.Tensor, mask: torch.Tensor):
     """Scores of the pre-scaled fp32 queries ``qg`` (B,KH,G,Sq,D) against k
-    (B,KH,Sk,D), exponentiated against their row max: (B,KH,G,Sq,Sk) fp32,
-    0 where masked, and each row's sum clamped at 1e-30 (a row that sees
-    no key is all 0)."""
-    dev = qg.device
+    (B,KH,Sk,D): (B,KH,G,Sq,Sk) fp32, NEG_INF where masked."""
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
-    s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
+    return torch.where(mask, s, torch.full((), NEG_INF, device=qg.device))
+
+
+def _exp_scores(qg: torch.Tensor, k: torch.Tensor, mask: torch.Tensor):
+    """``_scores`` exponentiated against their row max: (B,KH,G,Sq,Sk)
+    fp32, 0 where masked, and each row's sum clamped at 1e-30 (a row that
+    sees no key is all 0)."""
+    dev = qg.device
+    s = _scores(qg, k, mask)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros((), device=dev))
     return p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def _lse2(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Row log-sum-exp of the scores ``s`` (NEG_INF where masked), in the
+    log2 domain: (..., Sq) fp32, +inf for a row that sees no key."""
+    seen = mask.any(dim=-1)
+    m = s.amax(dim=-1)
+    lse = m + torch.log(torch.exp(s - m[..., None]).sum(dim=-1))
+    return torch.where(seen, lse * LOG2E,
+                       torch.full((), float("inf"), device=s.device))
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B,H,Sq,D); k: (B,KH,Sk,D) -> (B,H,Sq) fp32: each query row's
+    log2(sum over its visible keys of exp(q.k / sqrt(D))), +inf for a row
+    that sees no key (so exp2(s * log2(e) - lse), its P, is 0)."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, KH, H // KH, Sq, D) * (1.0 / math.sqrt(D))
+    mask = _mask(Sq, Sk, causal, window, q.device)
+    return _lse2(_scores(qg, k, mask), mask).reshape(B, H, Sq)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,25 +102,31 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, *, causal: bool = True,
-                            window: int = 0):
+                            window: int = 0,
+                            lse: Optional[torch.Tensor] = None):
     """Gradient of ``flash_attention_ref`` with respect to q, k and v.
 
     q, o, do: (B,H,Sq,D); k/v: (B,KH,Sk,D); ``o`` is the forward's output
-    and ``do`` the gradient arriving at it.  In fp32: P recomputed from q
-    and k, dV = P^T.dO, dP = dO.V^T, dS = P * (dP - delta) with delta =
-    rowsum(dO * o), dQ = dS.K / sqrt(D), dK = dS^T.Q / sqrt(D); the G query
-    heads of a kv head sum into its dK and dV.  A query row that sees no
-    key gets 0 (its output is defined as 0).  Returns (dq, dk, dv) in the
-    dtypes of q, k and v."""
+    and ``do`` the gradient arriving at it; ``lse`` (B,H,Sq), the forward's
+    log2-domain log-sum-exp, is recomputed (``attention_lse_ref``) when not
+    given.  In fp32: P = exp2(s * log2(e) - lse) over the visible keys of
+    the scaled scores s, dV = P^T.dO, dP = dO.V^T, dS = P * (dP - delta)
+    with delta = rowsum(dO * o), dQ = dS.K / sqrt(D), dK = dS^T.Q /
+    sqrt(D); the G query heads of a kv head sum into its dK and dV.  A
+    query row that sees no key gets 0 (its output is defined as 0).
+    Returns (dq, dk, dv) in the dtypes of q, k and v."""
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     G = H // KH
     scale = 1.0 / math.sqrt(D)
     qf = q.float().reshape(B, KH, G, Sq, D)
     dof = do.float().reshape(B, KH, G, Sq, D)
-    p, denom = _exp_scores(qf * scale, k,
-                           _mask(Sq, Sk, causal, window, q.device))
-    p = p / denom
+    mask = _mask(Sq, Sk, causal, window, q.device)
+    s = _scores(qf * scale, k, mask)
+    lse = (_lse2(s, mask) if lse is None
+           else lse.float().reshape(B, KH, G, Sq))
+    p = torch.where(mask, torch.exp2(s * LOG2E - lse[..., None]),
+                    torch.zeros((), device=q.device))
     delta = (dof * o.float().reshape(B, KH, G, Sq, D)).sum(-1, keepdim=True)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())

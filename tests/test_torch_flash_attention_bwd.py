@@ -154,7 +154,8 @@ def test_attention_passes_gradients_to_q_k_v(shape):
 
 def test_no_grad_saves_nothing_for_backward():
     """Serving runs under ``torch.no_grad()``: the forward saves no tensor
-    there, and with grad enabled it saves q, k, v and the output."""
+    there, and with grad enabled it saves q, k, v, the output and each
+    row's log-sum-exp (the backward takes it instead of recomputing it)."""
     q, k, v, _ = map(torch.from_numpy, _inputs(SHAPES[1]))
     q.requires_grad_(True)
     packed = []
@@ -168,7 +169,8 @@ def test_no_grad_saves_nothing_for_backward():
             flash_attention_bshd(q, k, v)
         assert packed == []
         flash_attention_bshd(q, k, v)
-    assert len(packed) == 4
+    assert len(packed) == 5
+    assert packed[4].shape == (1, 4, 65) and packed[4].dtype == torch.float32
 
 
 def test_bwd_wrapper_writes_strided_out_and_handles_empty_q():

@@ -1,7 +1,8 @@
 """The tensor-core design of flash prefill attention (K2, bf16), on the CPU.
 
 The bf16 kernel in ``repro_torch/csrc/flash_attention.cu`` runs only on the
-card (its tests here are marked ``cuda``; this file imports no JAX, so they
+card (its tests here are marked ``cuda``, with one for the backward
+beside them; this file imports no JAX, so they
 run on a card without it: ``pytest --noconftest -m cuda`` on this file).  Here a tile-level model of its arithmetic in plain torch (kv tiles
 of 128 keys, 64 at D = 128; fp32 online softmax in exp2 form; P split into
 bf16 hi and lo parts for two P.V products into one fp32 accumulator; one
@@ -217,3 +218,33 @@ def test_cuda_tc_kernel_within_one_ulp(D):
             n += 1
             assert _worst(out, flash_attention_ref(q, k, v, **mask)) <= 1.0
     assert k2.tc_launches == before + n
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_bwd_refuses_what_tma_cannot_read():
+    """On the card: the bf16 backward (tensor-core kernels, q, k, v and dO
+    read by TMA) refuses with ValueError a tensor TMA cannot read, and
+    launches nothing; without the forward's lse it refuses too.  The f32
+    backward refuses a dO its 16-byte loads cannot read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q, k, v = (t.cuda() for t in _inputs(1, 4, 2, 8, 64, seed=1))
+    lse = torch.empty(1, 4, 8, device="cuda")
+    o = flash_attention(q, k, v, lse=lse)
+    flat = torch.randn(1 * 4 * 8 * 64 + 1, device="cuda").bfloat16()
+    padded = torch.randn(1, 4, 8, 68, device="cuda").bfloat16()[..., :64]
+    before = k2.bwd_launches
+    for do in (flat[1:].view(1, 4, 8, 64), padded):
+        with pytest.raises(ValueError, match="TMA"):
+            k2.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    with pytest.raises(ValueError, match="lse"):
+        k2.flash_attention_bwd(q, k, v, o, o)
+    # f32 runs on the CUDA cores, but its delta kernel reads o and dO in
+    # 16-byte loads too: a dO those cannot read raises the same way.
+    q, k, v, o = (t.float() for t in (q, k, v, o))
+    flat = torch.randn(1 * 4 * 8 * 64 + 1, device="cuda")
+    padded = torch.randn(1, 4, 8, 66, device="cuda")[..., :64]
+    for do in (flat[1:].view(1, 4, 8, 64), padded):
+        with pytest.raises(ValueError, match="16-byte loads"):
+            k2.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    assert k2.bwd_launches == before
