@@ -21,10 +21,15 @@ Phases (any failure raises and the script exits non-zero):
                 stages and the splits (63, 64, 65, 128, 129, 1999, 2048, 1,
                 0 at NP=128), at the splits ``num_splits`` chooses and
                 forced to 1, 2, 3, 7 and NP; D=128 with G=8 and D=256 with
-                G=2; B=1 at L = 2047, 2048, 2049, 32767 and 32768; B=32 at
-                L=2048, and a B=32 batch mixing lengths 0, 1 and 2048 on
-                int8 pages; shuffled block tables whose dead entries point
-                far outside the pool.  Bounds: f32 and int8-with-f32-q
+                G=2; the decode heads of phase 15's families at D=128
+                (starcoder2 H=36/KH=4: G=9 in uneven head groups of 3;
+                olmo H=KH=16; chameleon H=64/KH=8), f32 and bf16 pages,
+                across the ring's stages, at the decode shape B=4 and at
+                B=32, L=2048, each at the splits ``num_splits`` chooses
+                and at 3; B=1 at L = 2047, 2048, 2049, 32767 and 32768;
+                B=32 at L=2048, and a B=32 batch mixing lengths 0, 1 and
+                2048 on int8 pages; shuffled block tables whose dead entries
+                point far outside the pool.  Bounds: f32 and int8-with-f32-q
                 atol=rtol=1e-5 (same fp32 math, other summation order);
                 bf16 and int8-with-bf16-q each element within 2**-7 x
                 |plain| + 1e-5 (one bf16 rounding of that element).  Every
@@ -35,13 +40,15 @@ Phases (any failure raises and the script exits non-zero):
   4. K2       — flash prefill attention against its plain version: every
                 mask (causal, bidirectional, causal + window 100) at every
                 D 16, 64, 128, G 1, 3, 4 and Sq = Sk in {1, 37, 64, 65,
-                127, 128, 129, 511, 2048, 4096}, B 1 or 3 in turn; Sq != Sk
-                both ways; strided (B,S,H,D) views; an empty q launches
-                nothing.  f32 (CUDA-core kernel): max error <= 1e-5; bf16
-                (tensor-core kernel, every bf16 case counted through it):
-                each element within 2**-7 x |plain| + 1e-5 (one output
-                rounding of that element).  Prints the worst error over
-                its limit of each dtype.  Then with ``lse`` requested (f32
+                127, 128, 129, 511, 2048, 4096}, B 1 or 3 in turn; the
+                prefill heads of phase 15's families at D=128, causal:
+                H=KH=16 (G=1), H=36/KH=4 (G=9) and H=64/KH=8 at Sq = Sk
+                in {37, 511, 2048}; Sq != Sk both ways; strided (B,S,H,D) views; an
+                empty q launches nothing.  f32 (CUDA-core kernel): max
+                error <= 1e-5; bf16 (tensor-core kernel, every bf16 case
+                counted through it): each element within 2**-7 x |plain| + 1e-5
+                (one output rounding of that element).  Prints the worst error
+                over its limit of each dtype.  Then with ``lse`` requested (f32
                 and bf16, every D and mask, Sq != Sk both ways): ``out``
                 bit-equal to the call without it, one launch, ``lse``
                 within 1e-4 of ``attention_lse_ref`` (log2 domain), +inf
@@ -78,13 +85,15 @@ Phases (any failure raises and the script exits non-zero):
                 busy time against the unprofiled wall time, top kernels.
   9. timings  — CUDA events around each call (the host's launch
                 included): K1 at the serving decode shape, at B=32, L=2048
-                on bf16 and on int8 pages and at B=1, L=32768, in turns
-                with its plain version and ``scaled_dot_product_attention``
-                on already gathered K/V (a yardstick, not the same
-                function), then both again as 20 calls in a CUDA graph,
-                with TB/s and the share of its bound;
+                on bf16 and on int8 pages and at B=1, L=32768, and at
+                starcoder2's heads (H=36, KH=4, D=128) at B=32, L=2048,
+                in turns with its plain version and
+                ``scaled_dot_product_attention`` on already gathered K/V
+                (a yardstick, not the same function), then both again as 20
+                calls in a CUDA graph, with TB/s and the share of its bound;
                 K2 at B=1, causal, bf16: H=15, KH=5, D=64 at S=511 and
-                S=4096, and H=32, KH=8, D=128 at S=4096, in turns with its
+                S=4096, and H=32, KH=8 and H=36, KH=4 (starcoder2) with
+                D=128 at S=4096, in turns with its
                 plain version and ``scaled_dot_product_attention`` (the
                 same function), then both again as 20 calls in a CUDA
                 graph (no host launch in the time), with TFLOP/s and the
@@ -205,9 +214,9 @@ Phases (any failure raises and the script exits non-zero):
                 lse raises ValueError.  Timed (kernel, CUDA graph, plain,
                 SDPA's backward as the yardstick, eager and in a CUDA
                 graph) at the training shape B=8, H=15, KH=5, S=512, D=64
-                and at K2's timing shapes.  (o) full-width smollm-360m in bf16 through
-                ``make_train_step``: AdamW (lr 3e-3, warmup 5, no weight
-                decay) 30 steps on one 8 x 512 batch from ``make_batch``
+                and at K2's timing shapes.  (o) full-width smollm-360m in bf16
+                through ``make_train_step``: AdamW (lr 3e-3, warmup 5, no
+                weight decay) 30 steps on one 8 x 512 batch from ``make_batch``
                 (finite; mean of the last 5 losses below the first 5's),
                 one Adafactor step (finite), remat "none" and "full" over 4
                 steps (losses and final params bit-equal), one step at
@@ -221,6 +230,27 @@ Phases (any failure raises and the script exits non-zero):
                 (p): three AdamW steps (lr 1e-4) of the f32 model at 4
                 layers on cuda and on the CPU: losses and params within
                 1e-3, each leaf's update within 5e-2 in norm.
+  15. model families — runs last.  olmo-1b (non-parametric LayerNorm,
+                MHA 16/16, SwiGLU, tied) and starcoder2-7b (LayerNorm,
+                plain GELU FFN, GQA 36/4, untied) whole, chameleon-34b
+                (RMSNorm, SwiGLU, GQA 64/8, untied) at full width and 8 of
+                its 48 layers (48 would be ~68.6 GB of bf16 weights), bf16
+                weights drawn on the card from a seeded generator: phase
+                5's paged cluster (K1 launches == decode passes x paged
+                layers, none split, K2 none) and dense cluster (K2 ==
+                layers x request prefills, all tensor-core, K1 none), each
+                with every request done, pools or slots released, >= 2
+                nodes per request and a last stage holding ``lm_head`` and
+                no ``embed`` when untied; tokens/s (host clock), peak
+                device memory and the plan printed.  Then each at full
+                width and 2 layers in f32, the paged cluster on cuda and
+                on the CPU: on init's weights greedy tokens equal and the
+                first-prefill and first-decode logit gap within the larger
+                of 1e-3 and 4x the gap between two cuda runs whose
+                embeddings are one rounding apart (init's 1/sqrt(depth)
+                std makes this random model amplify fp32 rounding); on
+                fan-in-scaled weights those logits within atol=rtol=1e-3
+                and greedy tokens equal.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
@@ -228,8 +258,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -262,6 +294,7 @@ from repro_torch.core import (LayerRange, MILPOptions,  # noqa: E402
 from repro_torch.core.cluster import DEVICE_PROFILES  # noqa: E402
 from repro_torch.core.mix_planner import (  # noqa: E402
     Bucket, ThroughputTable, TrafficProfile, mix_is_feasible)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.worker import run_worker  # noqa: E402
 from repro_torch.models import init  # noqa: E402
@@ -415,6 +448,21 @@ def check_case(name, args, kw, tol, splits=None):
     return err, worst, tol
 
 
+# arch -> layers phase 15 serves (None: the whole model).  chameleon-34b
+# keeps its full width (d=8192, 64/8 heads, d_ff 22016, vocab 65536) at 8
+# of its 48 layers: 48 would be ~68.6 GB of bf16 weights on an 80 GB card
+FAMILIES = {"olmo_1b": None, "starcoder2_7b": None, "chameleon_34b": 8}
+FAMILY_XCHECK_LAYERS = 2
+
+
+def family_heads(arch):
+    """(H, KH, D) of ``arch`` from the registry: olmo's G = 1 is MHA,
+    starcoder2's G = 9 runs K1's head groups unevenly (3, 3, 3 and one
+    idle), chameleon's G = 8."""
+    cfg = get_config(arch)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+
 DTYPE_PAIRS = ((torch.float32, "same", "f32"),
                (torch.bfloat16, "same", "bf16"),
                (torch.float32, "int8", "f32"),
@@ -457,6 +505,21 @@ def kernel_checks():
             tag = f"H{H}/KH{KH}/D{D} {str(dt)[6:]} {kv} multi-tile"
             for splits in (None, 3):
                 res.append(check_case(tag, args, kw, tol, splits))
+    # the decode heads of the model families (phase 15), f32 and bf16 at
+    # the splits num_splits chooses and at 3: lengths across the ring's
+    # stages, the paged decode shape at B=4 (4-page tables: 40-token
+    # prompts + 16 new tokens) and B=32 at L=2048
+    for H, KH, D in map(family_heads, FAMILIES):
+        for dt, kv, tol in DTYPE_PAIRS[:2]:
+            for what, B, NP, lens in (
+                    ("multi-tile", len(long_lens), 128, long_lens),
+                    ("decode B=4", 4, 4, [41, 48, 55, 56]),
+                    ("B=32 L=2048", 32, 128, [2048] * 31 + [1999])):
+                args, kw = make_inputs(B, H, KH, D, NP, lens, q_dtype=dt,
+                                       kv=kv, gen=gen, dead_ids=True)
+                tag = f"H{H}/KH{KH}/D{D} {str(dt)[6:]} {what}"
+                for splits in (None, 3):
+                    res.append(check_case(tag, args, kw, tol, splits))
     # one long sequence: split across the card by num_splits
     for L in (2047, 2048, 2049, 32767, 32768):
         args, kw = make_inputs(1, 15, 5, 64, -(-L // PAGE), [L],
@@ -586,7 +649,8 @@ def sdpa_yardstick(args, kw):
 def kernel_timings(pool_pages):
     """K1 (smollm heads: H=15, KH=5, D=64, bf16 q) at the serving decode
     shape, at B=32, L=2048 on bf16 and on int8 pages, and at B=1,
-    L=32768: CUDA events around each call (the host's launch included),
+    L=32768, and at starcoder2's heads (H=36, KH=4, D=128) at B=32,
+    L=2048: CUDA events around each call (the host's launch included),
     in turns with its plain version and the SDPA yardstick, then the
     kernel and the yardstick again as 20 calls replayed from one CUDA
     graph (no host launch); achieved bytes/s and the share of the bound
@@ -596,14 +660,18 @@ def kernel_timings(pool_pages):
     # main path decode shape: 4 requests mid-decode (length 48 of the
     # 40 + 16 budget) + the pad row (scratch page, length 1), one node's
     # pool, bf16
-    shapes = {"decode": (5, [48, 48, 48, 48, 1], 4, pool_pages, "same"),
-              "B32_L2048": (32, [2048] * 32, 128, None, "same"),
-              "B32_L2048_int8": (32, [2048] * 32, 128, None, "int8"),
-              "B1_L32768": (1, [32768], 2048, None, "same")}
-    for key, (B, lens, NP, P, kv) in shapes.items():
-        args, kw = make_inputs(B, 15, 5, 64, NP, lens, q_dtype=torch.bfloat16,
+    smollm = (15, 5, 64)
+    shapes = {"decode": (5, [48, 48, 48, 48, 1], 4, pool_pages, "same",
+                         smollm),
+              "B32_L2048": (32, [2048] * 32, 128, None, "same", smollm),
+              "B32_L2048_int8": (32, [2048] * 32, 128, None, "int8", smollm),
+              "B1_L32768": (1, [32768], 2048, None, "same", smollm),
+              "starcoder2_B32_L2048": (32, [2048] * 32, 128, None, "same",
+                                       family_heads("starcoder2_7b"))}
+    for key, (B, lens, NP, P, kv, (H, KH, D)) in shapes.items():
+        args, kw = make_inputs(B, H, KH, D, NP, lens, q_dtype=torch.bfloat16,
                                kv=kv, gen=gen, P=P)
-        splits = k1.num_splits(B, 5, NP, PAGE, k1.sm_count(args[0].device))
+        splits = k1.num_splits(B, KH, NP, PAGE, k1.sm_count(args[0].device))
         t = time_turns({
             "kernel": (lambda: paged_attention(*args, **kw), 50),
             "yardstick": (sdpa_yardstick(args, kw), 50),
@@ -613,8 +681,8 @@ def kernel_timings(pool_pages):
         yard_dev = graph_ms(sdpa_yardstick(args, kw))
         bound_ms, bound_by, nbytes = bound(args, kw)
         lens_txt = lens if B <= 5 else f"{B}x{lens[0]}"
-        out[key] = dict(shape=f"B={B} H=15 KH=5 D=64 page={PAGE} NP={NP} "
-                              f"lengths={lens_txt} q bf16, pages "
+        out[key] = dict(shape=f"B={B} H={H} KH={KH} D={D} page={PAGE} "
+                              f"NP={NP} lengths={lens_txt} q bf16, pages "
                               f"{'int8' if kv == 'int8' else 'bf16'}",
                         splits=splits, ms=t["kernel"], plain_ms=t["plain"],
                         bound_ms=bound_ms, bound_by=bound_by,
@@ -717,6 +785,13 @@ def k2_checks():
                 q, k, v = k2_inputs(B, KH * G, KH, S, S, D, dtype, gen)
                 run(dt, f"D={D}", f"{dt} B={B} H={KH * G} KH={KH} S={S} "
                     f"D={D}", q, k, v, mask)
+        # the prefill heads of phase 15's families at D=128, causal: G = 1
+        # (olmo), G = 9 (starcoder2) and G = 8 (chameleon)
+        for (H, KH, D), S in itertools.product(
+                map(family_heads, FAMILIES), (37, 511, 2048)):
+            q, k, v = k2_inputs(1, H, KH, S, S, D, dtype, gen)
+            run(dt, "families", f"{dt} B=1 H={H} KH={KH} S={S} D={D}",
+                q, k, v, "causal")
         for Sq, Sk in ((37, 511), (511, 37), (65, 2048), (2048, 65),
                        (1, 100), (100, 1), (300, 129)):
             for mask in K2_MASKS:
@@ -855,18 +930,19 @@ K2_TIMING_SHAPES = {       # key -> (H, KH, S, D), B=1, causal, bf16
     "S511": (15, 5, 511, 64),          # the dense serving prefill
     "S4096": (15, 5, 4096, 64),
     "D128_S4096": (32, 8, 4096, 128),
+    "starcoder2_S4096": (36, 4, 4096, 128),
 }
 
 
 def k2_timings():
     """K2 (the tensor-core kernel) at the dense serving shape (one
-    511-token prompt), at S=4096 and at S=4096 with H=32, KH=8, D=128,
-    causal, bf16; timed with CUDA events around each call (the host's
-    launch included), in turns with its plain version and with
-    ``scaled_dot_product_attention`` (the same function for causal Sq =
-    Sk; timed only, the port never calls it), then without the host's
-    launch (``graph_ms``); beside its bound, with TFLOP/s counting 4*H*D
-    per visible pair."""
+    511-token prompt), at S=4096, and at S=4096 with H=32, KH=8, D=128
+    and with starcoder2's H=36, KH=4, D=128, causal, bf16; timed with
+    CUDA events around each call (the host's launch included), in turns
+    with its plain version and with ``scaled_dot_product_attention`` (the
+    same function for causal Sq = Sk; timed only, the port never calls it),
+    then without the host's launch (``graph_ms``); beside its bound, with
+    TFLOP/s counting 4*H*D per visible pair."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
@@ -1472,12 +1548,25 @@ def check_requests(cfg, reqs, new_tokens, served=None, rec=None):
                 f"req{rid}: non-finite last-stage logits")
 
 
-def serving_phase(cfg, params):
+def check_head(cfg, rt):
+    """Every last-stage engine holds the final norm and, with untied
+    embeddings, ``lm_head`` and no ``embed`` (tied: ``embed``, no
+    ``lm_head``)."""
+    for n, e in rt.engines.items():
+        if e.is_last:
+            keys = set(e.sparams)
+            require("final_norm" in keys and
+                    ("lm_head" in keys) != cfg.tie_embeddings and
+                    ("embed" in keys) == cfg.tie_embeddings,
+                    f"{n}: last stage of {cfg.name} holds {sorted(keys)}")
+
+
+def serving_phase(cfg, params, argv=SERVE_ARGV):
     """Paged cluster serving: K1 in every decode pass of every layer, K2
     never."""
-    args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE])
-    warm = serve.parse_args(SERVE_ARGV + ["--device", DEVICE,
-                                          "--new-tokens", "2"])
+    args = serve.parse_args(argv + ["--device", DEVICE])
+    warm = serve.parse_args(argv + ["--device", DEVICE,
+                                    "--new-tokens", "2"])
     serve.run_cluster(cfg, warm, params, verbose=False)     # CUDA warm-up
     zero_counts()
     with LastStageLogits() as rec:
@@ -1486,6 +1575,7 @@ def serving_phase(cfg, params):
     split_launches = k1.split_launches
     toks = sum(len(r.output) for r in reqs)
     check_requests(cfg, reqs, args.new_tokens, rt.served, rec)
+    check_head(cfg, rt)
     used = rt.pool_pages_used()
     require(all(u == 0 for u in used.values()), f"pages leaked: {used}")
     expected = sum(e.decode_steps * e.n_paged for e in rt.engines.values())
@@ -1608,12 +1698,12 @@ def spec_serving_phase(cfg, params, ref_tokens, card):
     return out, base_lat
 
 
-def dense_serving_phase(cfg, params, card):
+def dense_serving_phase(cfg, params, card, argv=DENSE_ARGV):
     """Dense cluster serving (``--dense``): K2 in every prefill of every
     layer, K1 never (dense decode is plain torch)."""
-    args = serve.parse_args(DENSE_ARGV + ["--device", DEVICE])
-    warm = serve.parse_args(DENSE_ARGV + ["--device", DEVICE,
-                                          "--new-tokens", "2"])
+    args = serve.parse_args(argv + ["--device", DEVICE])
+    warm = serve.parse_args(argv + ["--device", DEVICE,
+                                    "--new-tokens", "2"])
     serve.run_cluster(cfg, warm, params, verbose=False)     # CUDA warm-up
     zero_counts()
     with LastStageLogits() as rec:
@@ -1622,6 +1712,7 @@ def dense_serving_phase(cfg, params, card):
                                           k1.launches)
     toks = sum(len(r.output) for r in reqs)
     check_requests(cfg, reqs, args.new_tokens, rt.served, rec)
+    check_head(cfg, rt)
     require(all(isinstance(e, StageEngine) for e in rt.engines.values()),
             "--dense built a paged engine")
     held = {n: e.kv_tokens_used() for n, e in rt.engines.items()
@@ -3085,17 +3176,24 @@ def engines_phase(cfg, params):
     return engine_k2, (k1.launches, k1.split_launches)
 
 
+def _recorded_run(cfg, params, argv, dev):
+    """The cluster of ``argv`` on ``dev``, last-stage logits recorded:
+    returns (recorder, tokens, seconds)."""
+    args = serve.parse_args(argv + ["--device", dev])
+    with LastStageLogits() as rec:
+        _, reqs, _, dt = serve.run_cluster(cfg, args, params, verbose=False)
+    return rec, [r.output for r in reqs], dt
+
+
 def _xcheck_runs(cfg, params, argv):
     """The paged cluster on cuda and the CPU, last-stage logits recorded:
     returns ((gpu recorder, gpu tokens), (cpu recorder, cpu tokens))."""
     runs = {}
     for name, dev, p in (("cuda", DEVICE, params),
                          ("cpu", "cpu", map_tree(lambda t: t.cpu(), params))):
-        args = serve.parse_args(argv + ["--device", dev])
-        with LastStageLogits() as rec:
-            _, reqs, _, dt = serve.run_cluster(cfg, args, p, verbose=False)
-        runs[name] = (rec, [r.output for r in reqs])
-        print(f"  {name}: tokens {runs[name][1]} ({dt:.2f} s)")
+        rec, toks, dt = _recorded_run(cfg, p, argv, dev)
+        runs[name] = (rec, toks)
+        print(f"  {name}: tokens {toks} ({dt:.2f} s)")
     return runs["cuda"], runs["cpu"]
 
 
@@ -3199,6 +3297,167 @@ def dense_cross_check(cfg32, params32):
             "greedy tokens differ between the serving paths")
     print(f"  greedy tokens equal on all {len(tokens)} runs; worst "
           f"first-prefill logit gap {worst:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the model families
+# ---------------------------------------------------------------------------
+
+# on init's weights the cuda-cpu logit gap of each family is held within
+# this many times the gap between two cuda runs whose embeddings are one
+# rounding apart, where that exceeds 1e-3 (chameleon at 2 layers read
+# 3.07x on the H100; olmo and starcoder2 1.51x and 1.56x)
+FAMILY_ROUNDING_FACTOR = 4
+
+
+def family_argv(argv, arch):
+    """A serving argv with ``arch`` as its model (argparse keeps the last
+    ``--arch``)."""
+    return argv + ["--arch", arch]
+
+
+def family_config(arch, layers=None, dtype=None):
+    """The registry's full config of ``arch``, cut to ``layers`` layers
+    and in ``dtype`` when given."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, repeats=layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                  compute_dtype=dtype)
+    return cfg
+
+
+def release_device_memory():
+    """Collect the runtimes of earlier runs (reference cycles keep their
+    engines, and the weights those view, alive) and return the freed
+    blocks to the card."""
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def family_params(cfg, seed):
+    """Random weights of ``cfg`` from a generator on the device (drawing
+    billions of values on the host would take minutes)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return init(cfg, gen, device=DEVICE)
+
+
+def families_phase(seed, card):
+    """Each family at full width in bf16 (chameleon cut in depth):
+    phase 5's paged cluster and the dense one, with their checks and
+    launch counts (K1 == decode passes x paged layers, none split, K2
+    none; K2 == layers x request prefills, all tensor-core, K1 none), the
+    last stage holding ``lm_head`` when untied; tokens/s on the host
+    clock and peak device memory.  Returns the counts and rates."""
+    out = {}
+    for arch, layers in FAMILIES.items():
+        cfg = family_config(arch, layers)
+        full = get_config(arch).num_layers
+        print(f"\n  {cfg.name}: {cfg.num_layers}L"
+              f"{'' if cfg.num_layers == full else f' (cut from {full})'} "
+              f"d={cfg.d_model} H={cfg.num_heads}/KH={cfg.num_kv_heads} "
+              f"D={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+              f"vocab={cfg.vocab_size} norm={cfg.norm} ffn={cfg.mlp_kind} "
+              f"tied={cfg.tie_embeddings} {cfg.param_dtype}", flush=True)
+        release_device_memory()
+        reset_peak()
+        resident = (torch.cuda.memory_allocated() / 2 ** 30
+                    if DEVICE == "cuda" else 0.0)
+        t0 = time.perf_counter()
+        params = family_params(cfg, seed)
+        sync()
+        print(f"  {param_bytes(params) / 1e9:.2f} GB of weights drawn on "
+              f"the card in {time.perf_counter() - t0:.2f} s")
+        (k1n, _), tok_s, _, _, _ = serving_phase(
+            cfg, params, family_argv(SERVE_ARGV, arch))
+        (k2n, _), dense_tok_s, _, _ = dense_serving_phase(
+            cfg, params, card, family_argv(DENSE_ARGV, arch))
+        peak = peak_gib()
+        print(f"  {cfg.name}: paged {tok_s:.2f} tokens/s, dense "
+              f"{dense_tok_s:.2f} tokens/s (host clock) on {card}; peak "
+              f"device memory {peak:.2f} GiB ({resident:.2f} GiB resident "
+              "before its weights were drawn)", flush=True)
+        out[arch] = dict(layers=cfg.num_layers, k1=k1n, k2=k2n,
+                         paged_tokens_per_s=tok_s,
+                         dense_tokens_per_s=dense_tok_s, peak_gib=peak,
+                         resident_gib=resident)
+        del params
+    release_device_memory()
+    return out
+
+
+def fan_in_scaled(params):
+    """``params`` with every stacked block matrix rescaled from the std
+    ``init`` gives it, 1/sqrt(depth) (the reference's rule takes a leaf's
+    first axis as its fan-in, and a stacked leaf's first axis is the
+    depth), to 1/sqrt(its own fan-in): H x D for the attention output
+    projection, its second axis for every other matrix."""
+    def scale(name, t):
+        if t.dim() < 3:
+            return t
+        fan = t.shape[1] * t.shape[2] if name == "o" else t.shape[1]
+        return t * math.sqrt(t.shape[0] / fan)
+    return dict(params, super={
+        pos: {part: {n: scale(n, t) for n, t in leaves.items()}
+              for part, leaves in block.items()}
+        for pos, block in params["super"].items()})
+
+
+def _max_gap(a, b):
+    """The largest |a - b| over each request's first-prefill and
+    first-decode last-stage logits of two recorded runs."""
+    return max(max(float(np.abs(a.prefill[r] - b.prefill[r]).max()),
+                   float(np.abs(a.decode[r][min(b.decode[r])] -
+                                b.decode[r][min(b.decode[r])]).max()))
+               for r in b.prefill)
+
+
+def families_cross_check(seed):
+    """Each family in f32 at full width and FAMILY_XCHECK_LAYERS layers,
+    the paged cluster on cuda and on the CPU (plain versions) on the same
+    weights.  On ``init``'s weights: greedy tokens equal, and the first-
+    prefill and first-decode logit gap within the larger of 1e-3 and
+    FAMILY_ROUNDING_FACTOR x the model's own f32 sensitivity, the gap
+    between two cuda runs whose embeddings are one rounding apart.  init
+    draws a stacked matrix at std 1/sqrt(depth), so at d = 8192 and 2
+    layers each projection amplifies its input ~64-fold and fp32 rounding
+    alone moves the logits by ~1e-3.  On ``fan_in_scaled`` weights: the
+    logits within atol=rtol=1e-3 and greedy tokens equal."""
+    for arch in FAMILIES:
+        cfg = family_config(arch, FAMILY_XCHECK_LAYERS, "float32")
+        argv = family_argv(XCHECK_ARGV, arch)
+        print(f"  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} float32, "
+              "init's weights")
+        params = family_params(cfg, seed)
+        (g, g_tok), (c, c_tok) = _xcheck_runs(cfg, params, argv)
+        require(g_tok == c_tok, f"{cfg.name}: greedy tokens differ on "
+                                f"init's weights: cuda {g_tok} cpu {c_tok}")
+        sign = torch.randint(0, 2, params["embed"].shape, device=DEVICE,
+                             generator=torch.Generator(
+                                 device=DEVICE).manual_seed(seed + 1))
+        apart = dict(params, embed=params["embed"] *
+                     (1 + (2 * sign - 1) * 2.0 ** -24))
+        rec = _recorded_run(cfg, apart, argv, DEVICE)[0]
+        gap, rounding = _max_gap(g, c), _max_gap(rec, g)
+        limit = max(XCHECK_TOL["atol"], FAMILY_ROUNDING_FACTOR * rounding)
+        print(f"  {cfg.name}, init's weights: greedy tokens equal; "
+              f"max|cuda-cpu| = {gap:.3e} against {rounding:.3e} between "
+              "two cuda runs whose embeddings are one rounding apart; "
+              f"limit {limit:.3e}")
+        require(gap <= limit, f"{cfg.name}: logits on init's weights "
+                              f"differ by {gap:.3e} > {limit:.3e}")
+        print(f"  {cfg.name}: fan-in-scaled weights")
+        (g, g_tok), (c, c_tok) = _xcheck_runs(cfg, fan_in_scaled(params),
+                                              argv)
+        worst = _compare_logits(g, c, "decode")
+        require(g_tok == c_tok, f"{cfg.name}: greedy tokens differ: "
+                                f"cuda {g_tok} cpu {c_tok}")
+        print(f"  {cfg.name}, fan-in-scaled weights: greedy tokens equal; "
+              f"worst logit gap {worst:.3e}")
+        del params, apart
+        release_device_memory()
 
 
 # ---------------------------------------------------------------------------
@@ -3399,6 +3658,16 @@ def main() -> int:
     t0 = time.perf_counter()
     training_cross_check(*xcheck_depth(cfg32, params32))
     print(f"  took {time.perf_counter() - t0:.2f} s")
+    del params32
+
+    phase("model families: olmo-1b, starcoder2-7b, chameleon-34b at full "
+          f"width ({FAMILIES['chameleon_34b']} of its 48 layers)")
+    t0 = time.perf_counter()
+    families = families_phase(args.seed, card)
+    phase(f"cross-check f32, {FAMILY_XCHECK_LAYERS} layers: the model "
+          "families' paged cluster, cuda vs cpu")
+    families_cross_check(args.seed)
+    print(f"  phase 15 took {time.perf_counter() - t0:.2f} s")
 
     print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
           f"{dense_tok_s:.2f} tokens/s on {card}")
@@ -3424,6 +3693,7 @@ def main() -> int:
                                        for k, v in cancel_as.items()},
          "workers_launches": {k: v["k1"] for k, v in workers.items()},
          "train_launches": train["launches"]["k1"],
+         "families_launches": {k: v["k1"] for k, v in families.items()},
          "max_abs_err": k1_err, "worst_err_over_limit": k1_worst,
          "ms": main1["ms"], "plain_ms": main1["plain_ms"],
          "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
@@ -3445,13 +3715,15 @@ def main() -> int:
                                        for k, v in cancel_as.items()},
          "workers_launches": {k: v["k2"] for k, v in workers.items()},
          "train_launches": train["launches"]["k2"],
+         "families_launches": {k: v["k2"] for k, v in families.items()},
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "lse_max_abs_err": k2_lse_err,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
          "library_ms": main2["library_ms"], "tflops": main2["tflops"],
          "bound_share": main2["bound_share"], "shape": main2["shape"],
-         "S4096": t2["S4096"], "D128_S4096": t2["D128_S4096"]},
+         "S4096": t2["S4096"], "D128_S4096": t2["D128_S4096"],
+         "starcoder2_S4096": t2["starcoder2_S4096"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/models/attention.py:63 (no Pallas kernel: "
@@ -3470,7 +3742,8 @@ def main() -> int:
          **{key: tb[key] for key in tb if key != "train"}}],
         "training": {key: (float(val) if isinstance(val, np.floating)
                            else val)
-                     for key, val in train.items() if key != "launches"}}
+                     for key, val in train.items() if key != "launches"},
+        "families": families}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 ``get_smoke_config``.
 
 A copy of ``repro.configs`` restricted to the architectures the PyTorch port
-carries (the dense GQA family).  Each module exports ``CONFIG`` (the full
-published config) and ``SMOKE`` (a reduced same-family config for CPU tests).
+carries (all-full-attention GQA decoders with a dense FFN).  Each module
+exports ``CONFIG`` (the full published config) and ``SMOKE`` (a reduced
+same-family config for CPU tests).
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ from .base import BlockSpec, ModelConfig
 
 ARCH_IDS = [
     "smollm_360m",
+    "olmo_1b",
+    "starcoder2_7b",
+    "chameleon_34b",
 ]
 
 

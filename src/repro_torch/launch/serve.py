@@ -5,7 +5,9 @@ Cluster serving: MILP placement over a (VRAM-derated) logical cluster ->
 IWRR pipelines -> one stage engine per node under the ``ClusterRuntime``,
 paged stage engines by default or dense ones with ``--dense``.  Every
 node's engine lives on the one device (``--device``, CUDA by default), as
-the reference plays every node in one process.
+the reference plays every node in one process.  ``--arch`` names any arch
+of the port's registry: ``smollm_360m``, ``olmo_1b``, ``starcoder2_7b`` or
+``chameleon_34b``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --cluster A100,L4 --stages 2 --batch 4 --prompt 40 --new-tokens 16

@@ -21,7 +21,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"            # normal | zeros
+    init: str = "normal"            # normal | zeros | ones
     scale: Optional[float] = None   # stddev override for "normal"
 
     def __post_init__(self):
@@ -50,13 +50,15 @@ def init_param(spec: ParamSpec, gen: torch.Generator,
     reference's rule: std = scale or 1/sqrt(shape[0]))."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=gen.device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=gen.device)
     if spec.init != "normal":
         raise NotImplementedError(f"init {spec.init!r} is not ported")
     fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
     std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)     # in place: one fp32 copy of the leaf
 
 
 def _leaves(tree, prefix=()):
@@ -133,18 +135,43 @@ def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
     return y.to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
+              bias: Optional[torch.Tensor], eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm in fp32 over the last axis with the population variance
+    (``jnp.var``'s, not ``torch.var``'s default), cast back; no scale or
+    bias is the non-parametric form."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
 def norm_spec(cfg) -> Dict[str, ParamSpec]:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} is not ported yet (ROADMAP queue 1, model "
-            "breadth)")
-    return {"scale": ParamSpec((cfg.d_model,), ("embed",), init="zeros")}
+    d = cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"scale": ParamSpec((d,), ("embed",), init="zeros")}
+    if cfg.norm == "layernorm":
+        return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+                "bias": ParamSpec((d,), ("embed",), init="zeros")}
+    if cfg.norm == "nonparam_ln":
+        return {}
+    raise ValueError(cfg.norm)
 
 
 def apply_norm(cfg, params: Dict, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return rmsnorm(x, params["scale"])
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    if cfg.norm == "layernorm":
+        return layernorm(x, params["scale"], params["bias"])
+    if cfg.norm == "nonparam_ln":
+        return layernorm(x, None, None)
+    raise ValueError(cfg.norm)
 
 
 # ---------------------------------------------------------------------------

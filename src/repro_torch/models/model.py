@@ -1,4 +1,4 @@
-"""Model assembly for the dense GQA family — counterpart of
+"""Model assembly for the all-full-attention decoders — counterpart of
 ``repro.models.model`` (``param_specs`` / ``init``, ``_embed``, ``_logits``,
 ``forward``, ``loss_fn``, and the dense serving path: ``init_caches``,
 ``prefill``, ``fill_prefill_cache``, ``decode_step``).
@@ -7,9 +7,13 @@ The layer stack is ``prologue + pattern * repeats``; the repeated part keeps
 the reference's layout, params (and dense caches) stacked on a leading
 "layers" axis under ``["super"]``, and the reference's ``lax.scan`` over it
 becomes a Python loop over that axis.  Every prefill attention goes through
-``chunked_attention``, the flash prefill attention kernel.  Families other than full-attention GQA with a
-SwiGLU FFN (MoE, MLA, SSM, windowed attention, encoder-decoder) are not
-ported yet and raise.
+``chunked_attention``, the flash prefill attention kernel.
+
+The port carries decoders whose every block is full-attention GQA (MHA
+included) with a dense FFN: RMSNorm, LayerNorm or the non-parametric
+LayerNorm; SwiGLU or the plain GELU FFN; tied or untied embeddings
+(smollm, olmo, starcoder2, chameleon).  MoE, MLA, windowed or SSM blocks
+and encoder-decoders are not ported yet and raise in ``check_ported``.
 """
 from __future__ import annotations
 
@@ -27,15 +31,18 @@ from .moe import ffn_apply, ffn_spec
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is in the family the port carries: every block
-    full-attention GQA with a dense FFN, decoder-only."""
+    """Raise unless ``cfg`` is in the families the port carries: every
+    block full-attention GQA with a dense FFN, decoder-only (any norm the
+    reference has, either FFN, tied or untied embeddings)."""
     bad = [b for b in cfg.blocks
            if b.kind != "attn" or b.attn != "full" or b.moe]
     if (bad or cfg.mla_kv_lora_rank or cfg.is_encoder_decoder
             or cfg.d_ff <= 0):
         raise NotImplementedError(
-            f"{cfg.name}: only all-full-attention GQA stacks with a dense "
-            "FFN are ported (ROADMAP queue 1, model breadth)")
+            f"{cfg.name}: MoE, MLA, windowed or SSM blocks and "
+            "encoder-decoders are not ported yet; the port carries "
+            "all-full-attention GQA decoders with a dense FFN (ROADMAP "
+            "queue 1 item 7)")
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,10 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
               "repro_torch.training.train_step",
               "repro_torch.training.checkpoint",
               "repro_torch.launch.steps",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train",
+              "repro_torch.configs.olmo_1b",
+              "repro_torch.configs.starcoder2_7b",
+              "repro_torch.configs.chameleon_34b"):
         assert m in mods, res.stdout
 
 

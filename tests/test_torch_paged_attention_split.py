@@ -9,8 +9,8 @@ ones, keeps an fp32 running max m, denominator l and unnormalised
 accumulator over its tokens (m = -1e30, l = 0, acc = 0 when it has none),
 and the splits are merged with the log-sum-exp rescale.  Then the host's
 split choice (``num_splits``, from shapes alone) and the wrapper's
-refusals, on plain numbers.  The card-only test is marked ``cuda``; it
-imports no JAX, so it runs on a card without it
+refusals, on plain numbers.  The card-only tests are marked ``cuda``;
+they import no JAX, so they run on a card without it
 (``pytest --noconftest -m cuda`` on this file).
 """
 import math
@@ -270,3 +270,24 @@ def test_cuda_forced_splits_match_plain_version():
                 assert (diff <= 2.0 ** -7 * ref.abs() + 1e-5).all()
     with pytest.raises(ValueError):
         paged_attention(*args, num_splits=NP + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,KH", [(9, 4), (1, 16)], ids=["G9", "G1"])
+def test_cuda_head_groups_at_d128_match_plain_version(G, KH):
+    """On the card, D = 128 in bf16 at starcoder2's G = 9 (H = 36, KH =
+    4: head groups of 3, 3, 3 and an idle one) and olmo's G = 1 (H = KH =
+    16): each element within 2**-7 * |plain| + 1e-5 of the plain version,
+    at the splits ``num_splits`` chooses and at 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q, kp, vp, _, _, lengths, far, _ = _inputs(G, 16, _lengths(16), D=128,
+                                               KH=KH)
+    a = [t.cuda() for t in _t(q, kp, vp, far, lengths)]
+    a = [t.to(torch.bfloat16) if t.is_floating_point() else t for t in a]
+    ref = paged_attention_ref(*a).float()
+    for splits in (None, 3):
+        before = k1.launches
+        out = paged_attention(*a, num_splits=splits).float()
+        assert k1.launches == before + 1
+        assert (((out - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-5).all())
