@@ -7,13 +7,15 @@ Phases (any failure raises and the script exits non-zero):
   1. device   — prints the card's name and power limit (nvidia-smi); TF32
                 off for matmuls and convolutions.
   2. build    — compiles the three kernel sources (paged_attention.cu,
-                K1; flash_attention.cu, K2; flash_attention_bwd.cu, K2's
-                backward: delta, and dK/dV and dQ on the tensor cores for
-                bf16 or the CUDA cores for f32) with nvcc for sm_90a from
-                ``src/repro_torch/csrc``, the three builds started
-                together; prints each instance's registers, shared memory
-                and spills (-Xptxas -v); an instance that spills fails the
-                run.
+                K1; flash_attention.cu, K2, D 16/64/128/256, the D=256
+                tensor-core instance two warpgroups without a producer;
+                flash_attention_bwd.cu, K2's backward: delta, and dK/dV
+                and dQ on the tensor cores for bf16 or the CUDA cores for
+                f32) with nvcc for sm_90a from ``src/repro_torch/csrc``,
+                the three builds started together; prints each instance's
+                registers, shared memory and spills (-Xptxas -v); an
+                instance that spills, or a missing D=256 forward instance,
+                fails the run.
   3. K1       — paged decode attention (split-K) against its plain PyTorch
                 version on the card, f32 / bf16 / int8 + scales with f32 or
                 bf16 q: smoke and full smollm shapes with ragged lengths (1,
@@ -43,16 +45,24 @@ Phases (any failure raises and the script exits non-zero):
                 127, 128, 129, 511, 2048, 4096}, B 1 or 3 in turn; the
                 prefill heads of phase 15's families at D=128, causal:
                 H=KH=16 (G=1), H=36/KH=4 (G=9) and H=64/KH=8 at Sq = Sk
-                in {37, 511, 2048}; Sq != Sk both ways; strided (B,S,H,D) views; an
-                empty q launches nothing.  f32 (CUDA-core kernel): max
-                error <= 1e-5; bf16 (tensor-core kernel, every bf16 case
-                counted through it): each element within 2**-7 x |plain| + 1e-5
-                (one output rounding of that element).  Prints the worst error
-                over its limit of each dtype.  Then with ``lse`` requested (f32
+                in {37, 511, 2048}; gemma3's H=16/KH=8 at D=256 (phase
+                16): S in {37, 511, 1500, 2048} x causal, causal + window
+                1024 and bidirectional, window 100 (cutting the 64-key
+                tiles) at S = 511 and 2048, Sq != Sk both ways, and
+                phase 16's prefill shapes (S = 600, 1100, 1500, 2100,
+                causal and window 1024) as (B,S,H,D) views; Sq != Sk both
+                ways; strided (B,S,H,D) views; an empty q launches
+                nothing.  f32 (CUDA-core kernel): max error <= 1e-5; bf16
+                (tensor-core kernel, every bf16 case counted through it):
+                each element within 2**-7 x |plain| + 1e-5 (one output
+                rounding of that element).  Prints the worst error over
+                its limit of each dtype.  Then with ``lse`` requested (f32
                 and bf16, every D and mask, Sq != Sk both ways): ``out``
                 bit-equal to the call without it, one launch, ``lse``
                 within 1e-4 of ``attention_lse_ref`` (log2 domain), +inf
-                exactly on the rows that see no key.
+                exactly on the rows that see no key (D 16/64/128/256).
+                K2's backward at D=256 raises ValueError (no instance:
+                ROADMAP queue 2 item 1), f32 and bf16, launching nothing.
   5. serving  — full-width smollm-360m in bf16 through ``launch/serve.py
                 --cluster A100,L4 --stages 2``: paged (4 x 40-token prompts,
                 16 new tokens; K1 launches == decode passes x paged layers,
@@ -93,11 +103,14 @@ Phases (any failure raises and the script exits non-zero):
                 calls in a CUDA graph, with TB/s and the share of its bound;
                 K2 at B=1, causal, bf16: H=15, KH=5, D=64 at S=511 and
                 S=4096, and H=32, KH=8 and H=36, KH=4 (starcoder2) with
-                D=128 at S=4096, in turns with its
+                D=128 at S=4096, and gemma3's H=16, KH=8, D=256 at S=4096,
+                causal and with window 1024, in turns with its
                 plain version and ``scaled_dot_product_attention`` (the
-                same function), then both again as 20 calls in a CUDA
-                graph (no host launch in the time), with TFLOP/s and the
-                share of its bound.  The port never calls SDPA.
+                same function; with a window through a dense boolean mask
+                on repeated K/V, its only route), then both again as 20
+                calls in a CUDA graph (no host launch in the time), with
+                TFLOP/s and the share of its bound (4*D FLOPs per visible
+                pair and query head).  The port never calls SDPA.
   10. cross-checks, f32 — the paged cluster at full depth on cuda and on
                 the CPU (plain versions), same weights: first-prefill and
                 first-decode logits allclose at atol=rtol=1e-3, tokens
@@ -230,12 +243,13 @@ Phases (any failure raises and the script exits non-zero):
                 (p): three AdamW steps (lr 1e-4) of the f32 model at 4
                 layers on cuda and on the CPU: losses and params within
                 1e-3, each leaf's update within 5e-2 in norm.
-  15. model families — runs last.  olmo-1b (non-parametric LayerNorm,
-                MHA 16/16, SwiGLU, tied) and starcoder2-7b (LayerNorm,
-                plain GELU FFN, GQA 36/4, untied) whole, chameleon-34b
-                (RMSNorm, SwiGLU, GQA 64/8, untied) at full width and 8 of
-                its 48 layers (48 would be ~68.6 GB of bf16 weights), bf16
-                weights drawn on the card from a seeded generator: phase
+  15. model families — runs after phase 10.  olmo-1b (non-parametric
+                LayerNorm, MHA 16/16, SwiGLU, tied) and starcoder2-7b
+                (LayerNorm, plain GELU FFN, GQA 36/4, untied) whole,
+                chameleon-34b (RMSNorm, SwiGLU, GQA 64/8, untied) at full
+                width and 8 of its 48 layers (48 would be ~68.6 GB of
+                bf16 weights), bf16 weights drawn on the card from a
+                seeded generator: phase
                 5's paged cluster (K1 launches == decode passes x paged
                 layers, none split, K2 none) and dense cluster (K2 ==
                 layers x request prefills, all tensor-core, K1 none), each
@@ -251,6 +265,19 @@ Phases (any failure raises and the script exits non-zero):
                 std makes this random model amplify fp32 rounding); on
                 fan-in-scaled weights those logits within atol=rtol=1e-3
                 and greedy tokens equal.
+  16. gemma3-12b — runs last.  The whole model (48 layers: five local of
+                window 1024 to each global one; d=3840, H=16/KH=8, D=256,
+                d_ff 15360, vocab 262,144; ~23.5 GB of bf16 weights drawn
+                on the card) through ``launch/serve.py --cluster A100,L4
+                --stages 2 --dense`` (phase 5's dense checks) and through
+                ``Engine``, 4 prompts of 600, 1100, 1500 and 2100 tokens,
+                16 new tokens each: K2 launches == 48 x 4 = 192, all on
+                the tensor cores, 160 of them windowed, K1 none, in each;
+                tokens/s, peak device memory and wall time printed.
+                ``serve.py --paged`` and ``--cluster`` without ``--dense``
+                raise item 7 (c2).  Then one super-block (6 layers) in f32
+                at full width, the dense cluster on cuda and on the CPU on
+                an 1100-token prompt, under phase 15's two gates.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
@@ -711,6 +738,8 @@ def kernel_timings(pool_pages):
 K2_MASKS = {"causal": dict(causal=True, window=0),
             "bidirectional": dict(causal=False, window=0),
             "causal+window100": dict(causal=True, window=100)}
+# gemma3's local layers (phase 16): causal with window 1024
+K2_LOCAL_MASK = {"causal+window1024": dict(causal=True, window=1024)}
 
 
 def k2_check(name, q, k, v, mask, *, bshd=False):
@@ -722,7 +751,7 @@ def k2_check(name, q, k, v, mask, *, bshd=False):
     one bf16 ulp of that element (an ulp is <= 2**-7 of the value).
     Returns (max abs error, worst error over its limit); a case out of
     bounds is printed and fails the run."""
-    kw = K2_MASKS[mask]
+    kw = {**K2_MASKS, **K2_LOCAL_MASK}[mask]
     if bshd:       # model layout, passed as strided views
         out = k2_ops.flash_attention_bshd(q, k, v, **kw)
         ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -755,6 +784,13 @@ def k2_inputs(B, H, KH, Sq, Sk, D, dtype, gen):
 
 
 K2_SEQS = (1, 37, 64, 65, 127, 128, 129, 511, 2048, 4096)
+# gemma3 (phase 16): H=16, KH=8, D=256 from the registry, S across its
+# window of 1024 and its prompts; the masks of its local and global layers
+# and the encoder's
+GEMMA3 = "gemma3_12b"
+GEMMA3_SEQS = (37, 511, 1500, 2048)
+GEMMA3_PROMPTS = (600, 1100, 1500, 2100)
+GEMMA3_MASKS = ("causal", "causal+window1024", "bidirectional")
 
 
 def k2_checks():
@@ -762,7 +798,9 @@ def k2_checks():
     (across the f32 kernel's 64-row and the bf16 kernel's 128-row tiles, up
     to a long prompt) x three masks, B 1 or 3 in turn, f32 and bf16;
     Sq != Sk both ways; strided (B,S,H,D) inputs, among them slices of one
-    fused qkv tensor; an empty q launches nothing.  Every bf16 launch goes
+    fused qkv tensor; gemma3's heads at D=256 (GEMMA3_SEQS x causal,
+    window 1024 and bidirectional; window 100; Sq != Sk; phase 16's
+    prefill shapes); an empty q launches nothing.  Every bf16 launch goes
     through the tensor-core kernel.  Prints one line per (dtype, D) group
     and returns the worst error over its limit of each dtype and the
     largest abs error."""
@@ -798,6 +836,31 @@ def k2_checks():
                 q, k, v = k2_inputs(2, 15, 5, Sq, Sk, 64, dtype, gen)
                 run(dt, "Sq!=Sk", f"{dt} B=2 H=15 KH=5 Sq={Sq} Sk={Sk} D=64",
                     q, k, v, mask)
+        # gemma3's heads at D=256 (the two-warpgroup tensor-core instance
+        # and the f32 one): S across the window, windows of 100 that cut
+        # the 64-key tiles mid-way, Sq != Sk both ways, and phase 16's
+        # prefill shapes (its prompts, B=1, local and global layers) in
+        # the model layout
+        H, KH, D = family_heads(GEMMA3)
+        for S, mask in itertools.product(GEMMA3_SEQS, GEMMA3_MASKS):
+            q, k, v = k2_inputs(1, H, KH, S, S, D, dtype, gen)
+            run(dt, "D=256", f"{dt} B=1 H={H} KH={KH} S={S} D={D}",
+                q, k, v, mask)
+        for S in (511, 2048):
+            q, k, v = k2_inputs(2, H, KH, S, S, D, dtype, gen)
+            run(dt, "D=256", f"{dt} B=2 H={H} KH={KH} S={S} D={D}",
+                q, k, v, "causal+window100")
+        for (Sq, Sk), mask in itertools.product(
+                ((37, 511), (511, 37), (300, 1100), (1100, 300)),
+                GEMMA3_MASKS):
+            q, k, v = k2_inputs(2, H, KH, Sq, Sk, D, dtype, gen)
+            run(dt, "D=256", f"{dt} B=2 H={H} KH={KH} Sq={Sq} Sk={Sk} "
+                f"D={D}", q, k, v, mask)
+        for S, mask in itertools.product(GEMMA3_PROMPTS, GEMMA3_MASKS[:2]):
+            q, k, v = (x.transpose(1, 2).contiguous()
+                       for x in k2_inputs(1, H, KH, S, S, D, dtype, gen))
+            run(dt, "D=256", f"{dt} (B,S,H,D) phase 16 prefill S={S} "
+                f"H={H} KH={KH} D={D}", q, k, v, mask, bshd=True)
         for S, D, H, KH in ((511, 64, 15, 5), (300, 128, 8, 2),
                             (65, 16, 4, 2)):
             for mask in K2_MASKS:
@@ -838,6 +901,31 @@ def k2_checks():
     return err, worst
 
 
+def k2_bwd_refuses_d256():
+    """K2's backward has no D=256 instance (ROADMAP queue 2 item 1's
+    backward): at gemma3's heads it raises ValueError, f32 and bf16,
+    launching nothing."""
+    H, KH, D = family_heads(GEMMA3)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    before = k2.bwd_launches
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = k2_inputs(1, H, KH, 64, 64, D, dtype, gen)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=DEVICE)
+        o = flash_attention(q, k, v, lse=lse)
+        try:
+            k2.flash_attention_bwd(q, k, v, o, o, lse=lse)
+        except ValueError as e:
+            require("queue 2 item 1" in str(e), f"the D=256 backward raised "
+                    f"another ValueError: {e}")
+            msg = str(e)
+        else:
+            require(False, f"flash_attention_bwd at D=256 ({dtype}) did not "
+                           "raise")
+    require(k2.bwd_launches == before, "the D=256 backward launched")
+    print(f"  flash_attention_bwd at H={H} KH={KH} D={D}, f32 and bf16: "
+          f"ValueError ({msg}), no launch")
+
+
 K2_LSE_TOL = 1e-4       # log2 domain: the same fp32 sums in another order
 
 
@@ -852,8 +940,8 @@ def k2_lse_checks():
     worst, n = 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
         for D, (Sq, Sk), mask in itertools.product(
-                (16, 64, 128), ((1, 1), (129, 129), (511, 511), (300, 65),
-                                (65, 300)), K2_MASKS):
+                (16, 64, 128, 256), ((1, 1), (129, 129), (511, 511),
+                                     (300, 65), (65, 300)), K2_MASKS):
             kw = K2_MASKS[mask]
             q, k, v = k2_inputs(2, 6, 2, Sq, Sk, D, dtype, gen)
             before = k2.launches
@@ -876,30 +964,42 @@ def k2_lse_checks():
                 if seen.any() else 0.0
             require(err <= K2_LSE_TOL, f"K2's lse off by {err} ({name})")
             worst, n = max(worst, err), n + 1
-    print(f"  lse requested: {n} cases (f32 and bf16, D 16/64/128, three "
-          f"masks, S across the tiles, Sq != Sk both ways): out bit-equal "
-          f"to the call without lse, one launch each; max|lse - plain| = "
+    print(f"  lse requested: {n} cases (f32 and bf16, D 16/64/128/256, "
+          f"three masks, S across the tiles, Sq != Sk both ways): out "
+          f"bit-equal to the call without lse, one launch each; "
+          f"max|lse - plain| = "
           f"{worst:.3e} (limit {K2_LSE_TOL:g}, log2 domain), +inf exactly "
           f"on the rows that see no key")
     return worst
 
 
-def k2_work(q, k, causal):
+def k2_pairs(Sq, Sk, causal, window=0):
+    """Visible (query, key) pairs of one head: top-left aligned, causal
+    keeps j <= i, a window keeps i - j < window."""
+    i = np.arange(Sq)[:, None]
+    j = np.arange(Sk)[None, :]
+    vis = np.ones((Sq, Sk), bool)
+    if causal:
+        vis &= j <= i
+    if window:
+        vis &= i - j < window
+    return int(vis.sum())
+
+
+def k2_work(q, k, causal, window=0):
     """The bytes the function must move (q, k, v read once, out written
     once) and its FLOPs, 4*D per visible (query, key) pair per query
     head."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
-             else Sq * Sk)
-    return nbytes, 4 * B * H * D * pairs
+    return nbytes, 4 * B * H * D * k2_pairs(Sq, Sk, causal, window)
 
 
-def k2_bound(q, k, causal):
+def k2_bound(q, k, causal, window=0):
     """Least time for the same work: its bytes over HBM bandwidth vs its
     FLOPs over the bf16 (or fp32) peak; the larger bounds it."""
-    nbytes, flops = k2_work(q, k, causal)
+    nbytes, flops = k2_work(q, k, causal, window)
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -926,40 +1026,64 @@ def graph_ms(fn, calls=20):
     return time_ms(graph.replay, reps=10, warmup=1) / calls
 
 
-K2_TIMING_SHAPES = {       # key -> (H, KH, S, D), B=1, causal, bf16
-    "S511": (15, 5, 511, 64),          # the dense serving prefill
-    "S4096": (15, 5, 4096, 64),
-    "D128_S4096": (32, 8, 4096, 128),
-    "starcoder2_S4096": (36, 4, 4096, 128),
+K2_TIMING_SHAPES = {  # key -> (H, KH, S, D, window), B=1, causal, bf16
+    "S511": (15, 5, 511, 64, 0),       # the dense serving prefill
+    "S4096": (15, 5, 4096, 64, 0),
+    "D128_S4096": (32, 8, 4096, 128, 0),
+    "starcoder2_S4096": (36, 4, 4096, 128, 0),
+    # gemma3's global and local layers (H=16, KH=8, D=256)
+    "gemma3_S4096": (16, 8, 4096, 256, 0),
+    "gemma3_S4096_w1024": (16, 8, 4096, 256, 1024),
 }
+
+
+def sdpa_call(q, k, v, window):
+    """``scaled_dot_product_attention`` computing K2's function (timed
+    only, the port never calls it): causal through ``is_causal`` with
+    GQA; with a window it has no route but a dense boolean mask (every
+    pair computed), taken on K/V repeated to the query heads."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not window:
+        return lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    S, G = q.shape[2], q.shape[1] // k.shape[1]
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = (j <= i) & (i - j < window)
+    kr, vr = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    return lambda: sdpa(q, kr, vr, attn_mask=mask)
 
 
 def k2_timings():
     """K2 (the tensor-core kernel) at the dense serving shape (one
-    511-token prompt), at S=4096, and at S=4096 with H=32, KH=8, D=128
-    and with starcoder2's H=36, KH=4, D=128, causal, bf16; timed with
-    CUDA events around each call (the host's launch included), in turns
-    with its plain version and with ``scaled_dot_product_attention`` (the
-    same function for causal Sq = Sk; timed only, the port never calls it),
-    then without the host's launch (``graph_ms``); beside its bound, with
-    TFLOP/s counting 4*H*D per visible pair."""
+    511-token prompt), at S=4096, and at S=4096 with H=32, KH=8, D=128,
+    with starcoder2's H=36, KH=4, D=128 and with gemma3's H=16, KH=8,
+    D=256 (causal, and causal with its local window 1024), bf16; timed
+    with CUDA events around each call (the host's launch included), in
+    turns with its plain version and with ``scaled_dot_product_attention``
+    (``sdpa_call``: the same function; timed only, the port never calls
+    it), then without the host's launch (``graph_ms``); beside its bound,
+    with TFLOP/s counting 4*H*D per visible pair."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for key, (H, KH, S, D) in K2_TIMING_SHAPES.items():
+    for key, (H, KH, S, D, w) in K2_TIMING_SHAPES.items():
         q, k, v = k2_inputs(1, H, KH, S, S, D, torch.bfloat16, gen)
+        lib = sdpa_call(q, k, v, w)
         t = time_turns({
-            "kernel": (lambda: flash_attention(q, k, v, causal=True), 50),
-            "library": (lambda: sdpa(q, k, v, is_causal=True,
-                                     enable_gqa=True), 50),
-            "plain": (lambda: flash_attention_ref(q, k, v, causal=True),
-                      10)})
-        dev = graph_ms(lambda: flash_attention(q, k, v, causal=True))
-        lib_dev = graph_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                        enable_gqa=True))
-        bound_ms, bound_by = k2_bound(q, k, True)
-        flops = k2_work(q, k, True)[1]
-        out[key] = dict(shape=f"B=1 H={H} KH={KH} S={S} D={D} causal bf16",
+            "kernel": (lambda: flash_attention(q, k, v, causal=True,
+                                               window=w), 50),
+            "library": (lib, 50),
+            "plain": (lambda: flash_attention_ref(q, k, v, causal=True,
+                                                  window=w), 10)})
+        dev = graph_ms(lambda: flash_attention(q, k, v, causal=True,
+                                               window=w))
+        lib_dev = graph_ms(lib)
+        bound_ms, bound_by = k2_bound(q, k, True, w)
+        flops = k2_work(q, k, True, w)[1]
+        mask = f"causal, window {w}" if w else "causal"
+        out[key] = dict(shape=f"B=1 H={H} KH={KH} S={S} D={D} {mask} bf16",
+                        library=("sdpa, dense boolean mask on K/V repeated "
+                                 "to the query heads (no windowed route)"
+                                 if w else "sdpa, is_causal, enable_gqa"),
                         ms=t["kernel"], plain_ms=t["plain"],
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=t["library"],
@@ -973,10 +1097,10 @@ def k2_timings():
               f"{r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}% of "
               f"the bound {bound_ms:.5f} ms ({bound_by}); in a CUDA graph "
               f"{dev:.4f} ms = {r['graph_tflops']:.1f} TFLOP/s, "
-              f"{100 * r['graph_bound_share']:.1f}% of the bound; sdpa "
-              f"{r['library_ms']:.4f} ms, in a CUDA graph {lib_dev:.4f} ms = "
-              f"{flops / lib_dev / 1e9:.1f} TFLOP/s; plain "
-              f"{r['plain_ms']:.4f} ms", flush=True)
+              f"{100 * r['graph_bound_share']:.1f}% of the bound; "
+              f"{r['library']} {r['library_ms']:.4f} ms, in a CUDA graph "
+              f"{lib_dev:.4f} ms = {flops / lib_dev / 1e9:.1f} TFLOP/s; "
+              f"plain {r['plain_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -1530,6 +1654,7 @@ def zero_counts():
     k1.split_launches = 0
     k2.launches = 0
     k2.tc_launches = 0
+    k2.window_launches = 0
     k2.bwd_launches = 0
 
 
@@ -3426,38 +3551,163 @@ def families_cross_check(seed):
     alone moves the logits by ~1e-3.  On ``fan_in_scaled`` weights: the
     logits within atol=rtol=1e-3 and greedy tokens equal."""
     for arch in FAMILIES:
-        cfg = family_config(arch, FAMILY_XCHECK_LAYERS, "float32")
-        argv = family_argv(XCHECK_ARGV, arch)
-        print(f"  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} float32, "
-              "init's weights")
-        params = family_params(cfg, seed)
-        (g, g_tok), (c, c_tok) = _xcheck_runs(cfg, params, argv)
-        require(g_tok == c_tok, f"{cfg.name}: greedy tokens differ on "
-                                f"init's weights: cuda {g_tok} cpu {c_tok}")
-        sign = torch.randint(0, 2, params["embed"].shape, device=DEVICE,
-                             generator=torch.Generator(
-                                 device=DEVICE).manual_seed(seed + 1))
-        apart = dict(params, embed=params["embed"] *
-                     (1 + (2 * sign - 1) * 2.0 ** -24))
-        rec = _recorded_run(cfg, apart, argv, DEVICE)[0]
-        gap, rounding = _max_gap(g, c), _max_gap(rec, g)
-        limit = max(XCHECK_TOL["atol"], FAMILY_ROUNDING_FACTOR * rounding)
-        print(f"  {cfg.name}, init's weights: greedy tokens equal; "
-              f"max|cuda-cpu| = {gap:.3e} against {rounding:.3e} between "
-              "two cuda runs whose embeddings are one rounding apart; "
-              f"limit {limit:.3e}")
-        require(gap <= limit, f"{cfg.name}: logits on init's weights "
-                              f"differ by {gap:.3e} > {limit:.3e}")
-        print(f"  {cfg.name}: fan-in-scaled weights")
-        (g, g_tok), (c, c_tok) = _xcheck_runs(cfg, fan_in_scaled(params),
-                                              argv)
-        worst = _compare_logits(g, c, "decode")
-        require(g_tok == c_tok, f"{cfg.name}: greedy tokens differ: "
-                                f"cuda {g_tok} cpu {c_tok}")
-        print(f"  {cfg.name}, fan-in-scaled weights: greedy tokens equal; "
-              f"worst logit gap {worst:.3e}")
-        del params, apart
-        release_device_memory()
+        family_cross_check(family_config(arch, FAMILY_XCHECK_LAYERS,
+                                         "float32"),
+                           family_argv(XCHECK_ARGV, arch), seed)
+
+
+def family_cross_check(cfg, argv, seed):
+    """``families_cross_check``'s two gates for one f32 config, served by
+    the cluster of ``argv`` on cuda and on the CPU."""
+    print(f"  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} float32, "
+          "init's weights")
+    params = family_params(cfg, seed)
+    (g, g_tok), (c, c_tok) = _xcheck_runs(cfg, params, argv)
+    require(g_tok == c_tok, f"{cfg.name}: greedy tokens differ on "
+                            f"init's weights: cuda {g_tok} cpu {c_tok}")
+    sign = torch.randint(0, 2, params["embed"].shape, device=DEVICE,
+                         generator=torch.Generator(
+                             device=DEVICE).manual_seed(seed + 1))
+    apart = dict(params, embed=params["embed"] *
+                 (1 + (2 * sign - 1) * 2.0 ** -24))
+    rec = _recorded_run(cfg, apart, argv, DEVICE)[0]
+    gap, rounding = _max_gap(g, c), _max_gap(rec, g)
+    limit = max(XCHECK_TOL["atol"], FAMILY_ROUNDING_FACTOR * rounding)
+    print(f"  {cfg.name}, init's weights: greedy tokens equal; "
+          f"max|cuda-cpu| = {gap:.3e} against {rounding:.3e} between "
+          "two cuda runs whose embeddings are one rounding apart; "
+          f"limit {limit:.3e}")
+    require(gap <= limit, f"{cfg.name}: logits on init's weights "
+                          f"differ by {gap:.3e} > {limit:.3e}")
+    print(f"  {cfg.name}: fan-in-scaled weights")
+    (g, g_tok), (c, c_tok) = _xcheck_runs(cfg, fan_in_scaled(params),
+                                          argv)
+    worst = _compare_logits(g, c, "decode")
+    require(g_tok == c_tok, f"{cfg.name}: greedy tokens differ: "
+                            f"cuda {g_tok} cpu {c_tok}")
+    print(f"  {cfg.name}, fan-in-scaled weights: greedy tokens equal; "
+          f"worst logit gap {worst:.3e}")
+    del params, apart
+    release_device_memory()
+    return dict(init_gap=gap, init_limit=limit, scaled_gap=worst)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: gemma3-12b whole
+# ---------------------------------------------------------------------------
+
+# the dense cluster (the MILP's 2-stage plan on A100,L4) and Engine: prompts
+# across the local layers' window of 1024, decode past their rings' ends
+GEMMA3_ARGV = ["--arch", GEMMA3, "--cluster", "A100,L4", "--stages", "2",
+               "--dense", "--batch", "4", "--prompt",
+               ",".join(map(str, GEMMA3_PROMPTS)), "--new-tokens", "16",
+               "--max-len", "2128"]
+GEMMA3_ENGINE_ARGV = ["--arch", GEMMA3, "--batch", "4", "--prompt",
+                      ",".join(map(str, GEMMA3_PROMPTS)), "--new-tokens",
+                      "16", "--max-len", "2128"]
+# the f32 cross-check: one super-block (5 local layers, 1 global) at full
+# width, one 1100-token prompt, on the dense cluster
+GEMMA3_XCHECK_ARGV = ["--arch", GEMMA3, "--cluster", "A100,L4", "--stages",
+                      "2", "--dense", "--batch", "1", "--prompt", "1100",
+                      "--new-tokens", "4", "--max-len", "1112"]
+
+
+def windowed_layers(cfg):
+    return sum(b.attn in ("local", "swa") for b in cfg.blocks)
+
+
+def check_gemma3_launches(cfg, prefills, what):
+    """K2 launches == layers x prefills, all on the tensor cores, the
+    local layers' share with a window; K1 none."""
+    want, want_w = cfg.num_layers * prefills, windowed_layers(cfg) * prefills
+    require(k2.launches == want and k2.tc_launches == want and
+            k2.window_launches == want_w and k1.launches == 0,
+            f"{what}: K2 {k2.launches} ({k2.tc_launches} tensor-core, "
+            f"{k2.window_launches} windowed), K1 {k1.launches}; expected "
+            f"{want} ({want_w} windowed) and 0")
+    return dict(k2=k2.launches, k2_tc=k2.tc_launches,
+                k2_window=k2.window_launches, k1=k1.launches)
+
+
+def gemma3_phase(seed, card):
+    """gemma3-12b whole in bf16 (48 layers, d=3840, 16/8 heads, D=256):
+    ``launch/serve.py --dense``'s cluster (phase 5's dense checks) and
+    ``Engine``, each with exact launch counts (K2 == 48 x 4 prefills, all
+    tensor-core, 40 x 4 windowed; K1 none), tokens/s, peak memory and
+    wall time; then its paged entry points raise item 7 (c2) before any
+    weights are drawn.  Returns the counts and rates."""
+    t_phase = time.perf_counter()
+    cfg = family_config(GEMMA3)
+    print(f"  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
+          f"H={cfg.num_heads}/KH={cfg.num_kv_heads} "
+          f"D={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size}, {windowed_layers(cfg)} layers of window "
+          f"{max(b.window for b in cfg.blocks)}, {cfg.param_dtype}",
+          flush=True)
+    release_device_memory()
+    reset_peak()
+    t0 = time.perf_counter()
+    params = family_params(cfg, seed)
+    sync()
+    print(f"  {param_bytes(params) / 1e9:.2f} GB of weights drawn on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+    (k2n, _), tok_s, dt, tokens = dense_serving_phase(cfg, params, card,
+                                                      GEMMA3_ARGV)
+    n_req = len(GEMMA3_PROMPTS)
+    cluster = check_gemma3_launches(cfg, n_req, "dense cluster")
+    cluster_peak = peak_gib()
+    print(f"  dense cluster: K2 launches {k2n} = {cfg.num_layers} layers x "
+          f"{n_req} prefills, all tensor-core, "
+          f"{cluster['k2_window']} with window 1024; K1 0; {tok_s:.2f} "
+          f"tokens/s in {dt:.3f} s; peak device memory {cluster_peak:.2f} "
+          "GiB", flush=True)
+
+    args = serve.parse_args(GEMMA3_ENGINE_ARGV + ["--device", DEVICE])
+    _run_engine(cfg, params, serve.parse_args(
+        GEMMA3_ENGINE_ARGV + ["--device", DEVICE, "--new-tokens", "2"]))
+    release_device_memory()
+    reset_peak()
+    zero_counts()
+    eng, reqs, edt = _run_engine(cfg, params, args)
+    check_requests(cfg, reqs, args.new_tokens)
+    require(not eng.active.any(), "Engine: slots still active")
+    engine = check_gemma3_launches(cfg, n_req, "Engine")
+    engine_peak = peak_gib()
+    etoks = sum(len(r.output) for r in reqs)
+    agree = sum(a == b for r, t in zip(reqs, tokens)
+                for a, b in zip(r.output, t))
+    print(f"  Engine: {len(reqs)} requests, {etoks} tokens in {edt:.3f} s = "
+          f"{etoks / edt:.2f} tokens/s; K2 launches {engine['k2']} = "
+          f"{cfg.num_layers} x {eng.prefills} prefills, all tensor-core, "
+          f"{engine['k2_window']} windowed; K1 0; peak device memory "
+          f"{engine_peak:.2f} GiB; tokens agreeing with the dense cluster's "
+          f"(bf16, other batch shapes): {agree} of {etoks}", flush=True)
+    del params, eng
+    release_device_memory()
+
+    for flags in (["--paged"], ["--cluster", "A100,L4", "--stages", "2"]):
+        try:
+            serve.main(["--arch", GEMMA3, "--device", DEVICE] + flags)
+        except NotImplementedError as e:
+            require("item 7 (c2)" in str(e), f"{flags}: {e}")
+            print(f"  serve.py {' '.join(flags)}: NotImplementedError ({e})")
+        else:
+            require(False, f"serve.py {' '.join(flags)} served {GEMMA3}")
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 16 (bf16 runs) wall time {wall:.2f} s", flush=True)
+    return dict(layers=cfg.num_layers, cluster=cluster, engine=engine,
+                dense_tokens_per_s=tok_s, dense_s=dt,
+                engine_tokens_per_s=etoks / edt, engine_s=edt,
+                cluster_peak_gib=cluster_peak, engine_peak_gib=engine_peak,
+                engine_agree=agree, engine_tokens=etoks, wall_s=wall)
+
+
+def gemma3_cross_check(seed):
+    """One super-block of gemma3-12b (``repeats=1``: 5 local layers and 1
+    global) at full width in f32, the dense cluster on cuda and on the
+    CPU on an 1100-token prompt, under phase 15's two gates."""
+    return family_cross_check(family_config(GEMMA3, 1, "float32"),
+                              GEMMA3_XCHECK_ARGV, seed)
 
 
 # ---------------------------------------------------------------------------
@@ -3552,6 +3802,11 @@ def build_all():
                   f"{e['spill_stores']} B, spill loads {e['spill_loads']} B")
             require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
                     f"{e['name']} spills registers")
+        if label == "flash_attention.cu":
+            names = {e["name"] for e in ptxas_report(log)}
+            for kind in ("f32", "tc"):
+                require(f"flash_attention_{kind}_kernel<256>" in names,
+                        f"flash_attention.cu built no D=256 {kind} instance")
 
 
 def main() -> int:
@@ -3579,6 +3834,7 @@ def main() -> int:
     phase("kernel K2: flash_attention vs plain")
     k2_err, k2_worst = k2_checks()
     k2_lse_err = k2_lse_checks()
+    k2_bwd_refuses_d256()
 
     args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE])
     cfg = serve.build_config(args)
@@ -3669,6 +3925,15 @@ def main() -> int:
     families_cross_check(args.seed)
     print(f"  phase 15 took {time.perf_counter() - t0:.2f} s")
 
+    phase("gemma3-12b whole: 48 layers at d=3840, K2 at D=256 (window "
+          "1024 and full causal), dense cluster and Engine")
+    t0 = time.perf_counter()
+    gemma3 = gemma3_phase(args.seed, card)
+    phase("cross-check f32, one super-block (6 layers): gemma3's dense "
+          "cluster, cuda vs cpu")
+    gemma3["xcheck"] = gemma3_cross_check(args.seed)
+    print(f"  phase 16 took {time.perf_counter() - t0:.2f} s")
+
     print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
           f"{dense_tok_s:.2f} tokens/s on {card}")
     main1, main2 = t1["decode"], t2["S511"]
@@ -3716,6 +3981,8 @@ def main() -> int:
          "workers_launches": {k: v["k2"] for k, v in workers.items()},
          "train_launches": train["launches"]["k2"],
          "families_launches": {k: v["k2"] for k, v in families.items()},
+         "gemma3_launches": {"cluster": gemma3["cluster"],
+                             "engine": gemma3["engine"]},
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "lse_max_abs_err": k2_lse_err,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
@@ -3723,7 +3990,9 @@ def main() -> int:
          "library_ms": main2["library_ms"], "tflops": main2["tflops"],
          "bound_share": main2["bound_share"], "shape": main2["shape"],
          "S4096": t2["S4096"], "D128_S4096": t2["D128_S4096"],
-         "starcoder2_S4096": t2["starcoder2_S4096"]},
+         "starcoder2_S4096": t2["starcoder2_S4096"],
+         "gemma3_S4096": t2["gemma3_S4096"],
+         "gemma3_S4096_w1024": t2["gemma3_S4096_w1024"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/models/attention.py:63 (no Pallas kernel: "
@@ -3743,7 +4012,7 @@ def main() -> int:
         "training": {key: (float(val) if isinstance(val, np.floating)
                            else val)
                      for key, val in train.items() if key != "launches"},
-        "families": families}
+        "families": families, "gemma3": gemma3}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 ``get_smoke_config``.
 
 A copy of ``repro.configs`` restricted to the architectures the PyTorch port
-carries (all-full-attention GQA decoders with a dense FFN).  Each module
-exports ``CONFIG`` (the full published config) and ``SMOKE`` (a reduced
-same-family config for CPU tests).
+carries (GQA decoders with a dense FFN, their attention full, local or
+sliding-window: gemma3's stack of five local layers to each global one
+among them).  Each module exports ``CONFIG`` (the full published config)
+and ``SMOKE`` (a reduced same-family config for CPU tests).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ ARCH_IDS = [
     "olmo_1b",
     "starcoder2_7b",
     "chameleon_34b",
+    "gemma3_12b",
 ]
 
 

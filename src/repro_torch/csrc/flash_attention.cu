@@ -23,19 +23,20 @@
 //    * one CTA per (query head, batch, 128-row query tile), 384 threads:
 //      warpgroup 0 is the producer (one thread issues every TMA load; the
 //      group gives its registers away with setmaxnreg), warpgroups 1 and 2
-//      are consumers, 64 query rows each, with 232 registers a thread;
+//      are consumers, 64 query rows each, with 232 registers a thread.
+//      D = 256 takes 256 threads instead (below);
 //    * Q is loaded once by TMA; K and V tiles of 128 keys (64 at D = 128,
-//      where 128 spill registers) come through a 2-stage ring in shared
-//      memory, loaded by cp.async.bulk.tensor and guarded by full (TMA
-//      bytes arrived) and empty (8 consumer warps done) mbarriers.  A wait
-//      that never ends traps instead of hanging.  The tensor maps are built per call on the host
-//      from the element strides, dims (D, S, heads, B), so the strided
-//      (B,S,H,D) views of ops.flash_attention_bshd and slices of one fused
-//      qkv tensor need no copy.  Rows past the end of the tensor arrive as
-//      zeros (V rows past Sk read as 0); keys at j >= Sk are still masked,
-//      since a zero K row scores 0, not -inf.  The maps' swizzle (128 B
-//      for D = 64 and 128, 32 B for D = 16) is the one the wgmma
-//      descriptors name;
+//      where 128 spill registers, and at D = 256) come through a 2-stage
+//      ring in shared memory, loaded by cp.async.bulk.tensor and guarded
+//      by full (TMA bytes arrived) and empty (8 consumer warps done)
+//      mbarriers.  A wait that never ends traps instead of hanging.  The
+//      tensor maps are built per call on the host from the element
+//      strides, dims (D, S, heads, B), so the strided (B,S,H,D) views of
+//      ops.flash_attention_bshd and slices of one fused qkv tensor need no
+//      copy.  Rows past the end of the tensor arrive as zeros (V rows past
+//      Sk read as 0); keys at j >= Sk are still masked, since a zero K row
+//      scores 0, not -inf.  The maps' swizzle (128 B for D = 64, 128 and
+//      256, 32 B for D = 16) is the one the wgmma descriptors name;
 //    * S = Q.K^T is a bf16 wgmma (A and B from shared memory) into fp32
 //      registers: bf16 products are exact in fp32.  1/sqrt(D) is applied
 //      in fp32 after the product.  Running max, denominator and the O
@@ -61,6 +62,19 @@
 //      tiles do not fall into the last wave;
 //    * the epilogue divides by max(l, 1e-30), rounds once to bf16 (RNE) and
 //      writes bf16 pairs through the output's strides.
+//   D = 256 (gemma3) keeps all of that but the thread layout.  A 64-row
+//   group's O accumulator alone is 128 fp32 registers a thread, S of a
+//   64-key tile 32 more and P's hi and lo fragments 32: more than the 168
+//   that a 384-thread launch allows a thread (an SM's registers are four
+//   files of 16,384, and a ninth warp puts three warps on one of them).  So
+//   the CTA is the two consumer warpgroups alone, 256 threads under a
+//   255-register ceiling, as K2's backward is (flash_attention_bwd.cu):
+//   thread 0 loads Q and the first two K/V tiles, then refills each stage
+//   one step after both groups release it.  Shared memory: Q 64 KiB, the
+//   2-stage ring of 64-key K and V tiles 128 KiB, 197,688 B with barriers
+//   and alignment (128-key tiles would need ~320 KiB).  P.V is one
+//   m64n256k16 wgmma per k-step and part (V read with the transpose bit
+//   across its four 128-byte column blocks).
 //
 // Both kernels write, when given an ``lse`` array (training asks for it),
 // each row's log-sum-exp in the log2 domain, ms + log2(l) in the tensor-
@@ -71,7 +85,8 @@
 // f32: flash_attention_f32_kernel, on the CUDA cores (the first port's
 //   design, kept for f32 inputs, which it matches to 1e-5): one block per
 //   (64-row query tile, query head, batch), 256 threads as a 16 x 16 grid,
-//   fp32 FMAs; K rows padded to D + 1 floats in shared memory.
+//   fp32 FMAs; K rows padded to D + 1 floats in shared memory (213,504 B
+//   at D = 256, under the 232,448 B a block may opt into).
 #include "hopper.cuh"
 
 namespace {
@@ -272,7 +287,6 @@ namespace tc {
 
 constexpr int kBM = 128;        // query rows per CTA, 64 per consumer group
 constexpr int kStages = 2;      // K/V ring depth
-constexpr int kThreads = 384;   // producer warpgroup + 2 consumer groups
 constexpr int kConsumerWarps = 8;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;   // 128*40 + 256*232 <= 65536
@@ -281,9 +295,14 @@ constexpr int kConsumerRegs = 232;   // 128*40 + 256*232 <= 65536
 template <int D>
 struct Cfg : Rows<D> {
   using R = Rows<D>;
+  // D = 256 has no producer warpgroup: its two consumer groups' thread 0
+  // keeps the ring full (kSelfFed), so a thread may hold 255 registers
+  static constexpr bool kSelfFed = D == 256;
+  static constexpr int kThreads = kSelfFed ? 256 : 384;
   // keys per kv tile; at D = 128, 128-key tiles spill registers (ptxas
-  // gives every instance 168), so that instance takes 64
-  static constexpr int kBN = D == 128 ? 64 : 128;
+  // gives every instance of a 384-thread launch 168), so that instance
+  // takes 64, as does D = 256, whose 128-key ring would not fit
+  static constexpr int kBN = D >= 128 ? 64 : 128;
   static constexpr int kPartQ = kBM * R::kRowBytes;
   static constexpr int kPartKV = kBN * R::kRowBytes;
   static constexpr int kQBytes = kBM * D * 2;
@@ -295,17 +314,58 @@ struct Cfg : Rows<D> {
   static constexpr int kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;  // + align
 };
 
+// Where the K/V ring's tiles come from: the kv head's maps and coordinates.
+struct Feed {
+  const CUtensorMap* tk;
+  const CUtensorMap* tv;
+  int kh, b, k_lo;
+};
+
+// Ring step i (the K and V tiles from key k_lo + i * BN) into stage
+// i % kStages, by one thread once the stage is released.
+template <int D>
+__device__ __forceinline__ void fill(const Feed& f, uint32_t sk, uint32_t sv,
+                                     uint32_t bar, int i) {
+  using C = Cfg<D>;
+  const uint32_t full_k = bar + 8, full_v = full_k + 8 * kStages,
+                 empty = full_v + 8 * kStages;
+  const int st = i % kStages;
+  const uint32_t ph = (i / kStages) & 1;
+  const int k0 = f.k_lo + i * C::kBN;
+  mbar_wait(empty + 8 * st, ph ^ 1);   // the first round passes
+  mbar_expect_tx(full_k + 8 * st, C::kKVBytes);
+  for (int p = 0; p < C::kParts; ++p)
+    tma_load(sk + st * C::kKVBytes + p * C::kPartKV, f.tk, p * C::kCols, k0,
+             f.kh, f.b, full_k + 8 * st);
+  mbar_expect_tx(full_v + 8 * st, C::kKVBytes);
+  for (int p = 0; p < C::kParts; ++p)
+    tma_load(sv + st * C::kKVBytes + p * C::kPartKV, f.tv, p * C::kCols, k0,
+             f.kh, f.b, full_v + 8 * st);
+}
+
+// The CTA's query tile, loaded once.
+template <int D>
+__device__ __forceinline__ void load_q(const CUtensorMap* tq, uint32_t sq,
+                                       uint32_t q_full, int q0, int h, int b) {
+  using C = Cfg<D>;
+  mbar_expect_tx(q_full, C::kQBytes);
+  for (int p = 0; p < C::kParts; ++p)
+    tma_load(sq + p * C::kPartQ, tq, p * C::kCols, q0, h, b, q_full);
+}
+
 // One consumer warpgroup: 64 query rows [row0_g, row0_g + 64) of the CTA's
 // tile against the n_tiles kv tiles from k_lo.  Thread layout of the wgmma
 // accumulators (64 x N): warp w of the group holds rows 16w + lane/4 and
 // 16w + lane/4 + 8; register 4j + e holds column 8j + 2*(lane%4) + (e&1) of
-// the first row (e < 2) or the second (e >= 2).
+// the first row (e < 2) or the second (e >= 2).  Self-fed (D = 256), the
+// CTA's thread 0 also refills the ring: each stage one step after its
+// release, so the next tile is in flight while this one is computed.
 template <int D>
 __device__ __forceinline__ void consume(
     uint32_t sq, uint32_t sk, uint32_t sv, uint32_t bar, int g,
     __nv_bfloat16* __restrict__ ob, long long oss, float* __restrict__ lse,
     int Sq, int Sk, int q0, int k_lo, int n_tiles, int causal, int window,
-    float scale) {
+    float scale, const Feed& feed) {
   using C = Cfg<D>;
   constexpr int BN = C::kBN;
   const uint32_t q_full = bar, full_k = bar + 8, full_v = full_k + 8 * kStages,
@@ -328,6 +388,12 @@ __device__ __forceinline__ void consume(
   if (n_tiles > 0) mbar_wait(q_full, 0);
   const uint32_t qa = sq + g * 64 * C::kRowBytes;
   for (int i = 0; i < n_tiles; ++i) {
+    if constexpr (C::kSelfFed) {
+      // refill the stage step i - 1 released (both groups are past it soon)
+      if (threadIdx.x == 0 && i >= 1 && i - 1 + kStages < n_tiles)
+        fill<D>(feed, sk, sv, bar, i - 1 + kStages);
+      __syncwarp();
+    }
     const int st = i % kStages;
     const uint32_t ph = (i / kStages) & 1;
     const int k0 = k_lo + i * BN;
@@ -442,7 +508,8 @@ __device__ __forceinline__ void consume(
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+    flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
@@ -483,34 +550,31 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
+  const Feed feed{&tk, &tv, kh, b, k_lo};
+  __nv_bfloat16* ob = out + b * os.b + h * os.h;
+  float* lrow = lse == nullptr ? nullptr : lse + ((long long)b * H + h) * Sq;
+  if constexpr (C::kSelfFed) {
+    // two consumer groups; thread 0 loads Q and the ring's first kStages
+    // tiles, then refills the ring between its own tiles
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      load_q<D>(&tq, sq, q_full, q0, h, b);
+      for (int i = 0; i < kStages && i < n_tiles; ++i)
+        fill<D>(feed, sk, sv, bar, i);
+    }
+    __syncwarp();
+    consume<D>(sq, sk, sv, bar, threadIdx.x / 128, ob, os.s, lrow, Sq, Sk,
+               q0, k_lo, n_tiles, causal, window, scale, feed);
+  } else if (threadIdx.x < 128) {
     // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (threadIdx.x == 0 && n_tiles > 0) {
-      mbar_expect_tx(q_full, C::kQBytes);
-      for (int p = 0; p < C::kParts; ++p)
-        tma_load(sq + p * C::kPartQ, &tq, p * C::kCols, q0, h, b, q_full);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % kStages;
-        const uint32_t ph = (i / kStages) & 1;
-        const int k0 = k_lo + i * BN;
-        mbar_wait(empty + 8 * st, ph ^ 1);   // the first round passes
-        mbar_expect_tx(full_k + 8 * st, C::kKVBytes);
-        for (int p = 0; p < C::kParts; ++p)
-          tma_load(sk + st * C::kKVBytes + p * C::kPartKV, &tk, p * C::kCols,
-                   k0, kh, b, full_k + 8 * st);
-        mbar_expect_tx(full_v + 8 * st, C::kKVBytes);
-        for (int p = 0; p < C::kParts; ++p)
-          tma_load(sv + st * C::kKVBytes + p * C::kPartKV, &tv, p * C::kCols,
-                   k0, kh, b, full_v + 8 * st);
-      }
+      load_q<D>(&tq, sq, q_full, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) fill<D>(feed, sk, sv, bar, i);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
-    consume<D>(sq, sk, sv, bar, threadIdx.x / 128 - 1,
-               out + b * os.b + h * os.h, os.s,
-               lse == nullptr ? nullptr : lse + ((long long)b * H + h) * Sq,
-               Sq, Sk, q0, k_lo, n_tiles, causal, window, scale);
+    consume<D>(sq, sk, sv, bar, threadIdx.x / 128 - 1, ob, os.s, lrow, Sq, Sk,
+               q0, k_lo, n_tiles, causal, window, scale, feed);
   }
 }
 
@@ -530,7 +594,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, (Sq + kBM - 1) / kBM);
-  kernel<<<grid, kThreads, C::kSmem, stream>>>(
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, os, H, KH, Sq, Sk,
       causal, window, scale);
   return (int)cudaGetLastError();
@@ -549,7 +613,7 @@ extern "C" {
 
 // Both entry points launch on ``stream`` and return 0 on success, else a
 // CUDA error code (cudaGetLastError() after the launch) or -1 when the
-// tensor maps cannot be built.  D is 16, 64 or 128.  Strides are in
+// tensor maps cannot be built.  D is 16, 64, 128 or 256.  Strides are in
 // elements, in the order (b, h, s) for each of q, k, v and out; d is
 // contiguous.  ``lse`` is null or a contiguous fp32 (B,H,Sq) array that
 // receives each query row's log2(sum_j exp2(q.k_j * scale * log2(e))) over
@@ -577,6 +641,7 @@ int flash_attention_f32_launch(int D, const void* q, const void* k,
     case 16: return (int)launch_f32<16>(ARGS);
     case 64: return (int)launch_f32<64>(ARGS);
     case 128: return (int)launch_f32<128>(ARGS);
+    case 256: return (int)launch_f32<256>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -603,6 +668,7 @@ int flash_attention_tc_launch(int D, const void* q, const void* k,
     case 16: return tc::launch<16>(ARGS);
     case 64: return tc::launch<64>(ARGS);
     case 128: return tc::launch<128>(ARGS);
+    case 256: return tc::launch<256>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS
@@ -615,6 +681,7 @@ int flash_attention_smem(int tc, int D) {
     case 16: return tc ? tc::Cfg<16>::kSmem : (int)smem_bytes(16);
     case 64: return tc ? tc::Cfg<64>::kSmem : (int)smem_bytes(64);
     case 128: return tc ? tc::Cfg<128>::kSmem : (int)smem_bytes(128);
+    case 256: return tc ? tc::Cfg<256>::kSmem : (int)smem_bytes(256);
     default: return 0;
   }
 }

@@ -147,6 +147,9 @@ __device__ __forceinline__ void split_frags(const float (&x)[8 * T],
 #define F32(c, d) F8(c, d, 0), F8(c, d, 8), F8(c, d, 16), F8(c, d, 24)
 #define F64(c, d) \
   F32(c, d), F8(c, d, 32), F8(c, d, 40), F8(c, d, 48), F8(c, d, 56)
+#define F128(c, d)                                                     \
+  F64(c, d), F8(c, d, 64), F8(c, d, 72), F8(c, d, 80), F8(c, d, 88),     \
+      F8(c, d, 96), F8(c, d, 104), F8(c, d, 112), F8(c, d, 120)
 #define R8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define R16 R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define R32                                                                  \
@@ -156,6 +159,14 @@ __device__ __forceinline__ void split_frags(const float (&x)[8 * T],
   R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
       "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
       "%58, %59, %60, %61, %62, %63"
+#define R128                                                                 \
+  R64 ", "                                                                   \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "    \
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "    \
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, "       \
+      "%102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, "   \
+      "%113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "   \
+      "%124, %125, %126, %127"
 
 // d (64 x N, fp32) (+)= A (64 x 16) * B (16 x N), bf16 operands.
 //   ss: A and B from shared memory, both K-major; d = A B when first (the
@@ -265,19 +276,36 @@ struct Mma<128> {
   }
 };
 
+// the forward's P.V at D = 256 (its O accumulator is 64 x 256)
+template <>
+struct Mma<256> {
+  static __device__ __forceinline__ void rs(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" R128 "}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : F128("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 #undef F4
 #undef F8
 #undef F16
 #undef F32
 #undef F64
+#undef F128
 #undef R8
 #undef R16
 #undef R32
 #undef R64
+#undef R128
 
 // A tile row of D bf16 is stored as kParts blocks of kCols columns (one
 // TMA box each), every block swizzled like the wgmma descriptors say:
-// 128 B rows at D = 64 and 128, 32 B rows at D = 16.
+// 128 B rows at D = 64, 128 and 256, 32 B rows at D = 16.
 template <int D>
 struct Rows {
   static constexpr int kCols = D < 64 ? D : 64;

@@ -4,15 +4,18 @@ The source, ``repro_torch/csrc/flash_attention.cu``, replaces the Pallas
 TPU kernel ``repro/kernels/flash_attention/kernel.py::flash_attention``
 with two kernels chosen by dtype: bf16 runs on the tensor cores (``wgmma``
 fed by TMA, 128-row query tiles against K/V tiles of 128 keys, 64 at
-D = 128; fp32 online softmax; P.V as two bf16 products of P split into hi
-and lo parts), f32 on the CUDA cores in fp32.  The source's header note says what bounds each and
-what the design does about that.  It is built at first use with ``nvcc``
-for ``sm_90a`` (``repro_torch.kernels._nvcc``).
+D = 128 and 256; at D = 256 the CTA is two consumer warpgroups with no
+producer warpgroup; fp32 online softmax; P.V as two bf16 products of P
+split into hi and lo parts), f32 on the CUDA cores in fp32.  D is 16, 64,
+128 or 256 (``HEAD_DIMS``).  The source's header note says what bounds
+each and what the design does about that.  It is built at first use with
+``nvcc`` for ``sm_90a`` (``repro_torch.kernels._nvcc``).
 
 ``flash_attention`` takes its plain version (``ref.flash_attention_ref``)
 only when every tensor it is given lies on the CPU.  For CUDA tensors it
 launches the kernel of their dtype or raises; ``launches`` counts every
-launch and ``tc_launches`` the tensor-core kernel's alone.  It reads q, k
+launch, ``tc_launches`` the tensor-core kernel's alone and
+``window_launches`` those with a sliding window.  It reads q, k
 and v through their strides (head_dim contiguous) and can write into a
 strided ``out``, so the model layout (B,S,H,D) needs no copy
 (``ops.flash_attention_bshd``).  The bf16 kernel reads q, k and v by TMA,
@@ -30,8 +33,9 @@ tensor cores (``wgmma`` fed by TMA, P and dS split into bf16 hi and lo
 parts), f32 on the CUDA cores.  Its plain version is
 ``ref.flash_attention_bwd_ref``, taken only when every tensor lies on the
 CPU (where a missing ``lse`` is recomputed); on CUDA tensors ``lse`` is
-required.  ``bwd_launches`` counts each of its kernels' launches
-(``BWD_KERNELS`` a call).
+required, and D must be one of ``BWD_HEAD_DIMS`` (16, 64, 128: D = 256
+raises ``ValueError``).  ``bwd_launches`` counts each of its kernels'
+launches (``BWD_KERNELS`` a call).
 """
 from __future__ import annotations
 
@@ -47,14 +51,19 @@ from .ref import (attention_lse_ref, flash_attention_bwd_ref,
                   flash_attention_ref)
 
 # kernel launches made by ``flash_attention`` (CPU calls do not count):
-# every launch, and the tensor-core (bf16) kernel's alone
+# every launch, the tensor-core (bf16) kernel's alone, and those with a
+# sliding window (window > 0)
 launches = 0
 tc_launches = 0
+window_launches = 0
 # kernel launches made by ``flash_attention_bwd``: BWD_KERNELS a call
 bwd_launches = 0
 BWD_KERNELS = 3
 
-HEAD_DIMS = (16, 64, 128)        # template instances in the source
+HEAD_DIMS = (16, 64, 128, 256)   # template instances in the source
+# the backward's instances (flash_attention_bwd.cu); D = 256 (gemma3's
+# training) is ROADMAP queue 2 item 1's backward
+BWD_HEAD_DIMS = (16, 64, 128)
 _SRC = CSRC / "flash_attention.cu"
 _ENTRY = {torch.float32: "flash_attention_f32_launch",
           torch.bfloat16: "flash_attention_tc_launch"}
@@ -224,7 +233,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the current stream or raise."""
-    global launches, tc_launches
+    global launches, tc_launches, window_launches
     given = [t for t in (q, k, v, out, lse) if t is not None]
     if all(t.device.type == "cpu" for t in given):
         res = flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -268,6 +277,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{rc} ({msg})")
     launches += 1
     tc_launches += tc
+    window_launches += window > 0
     return out
 
 
@@ -311,6 +321,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     for t in (q, k, v))
     dq, dk, dv = out
     _check(q, k, v, o, window)
+    if q.shape[3] not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd has no kernel at head_dim "
+                         f"{q.shape[3]} (instances {BWD_HEAD_DIMS}); D = 256 "
+                         "is ROADMAP queue 2 item 1's backward")
     for t, like in ((do, q), (dq, q), (dk, k), (dv, v)):
         if t.shape != like.shape or t.dtype != q.dtype:
             raise ValueError(f"a gradient tensor {tuple(t.shape)} "

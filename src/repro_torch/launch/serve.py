@@ -6,8 +6,14 @@ IWRR pipelines -> one stage engine per node under the ``ClusterRuntime``,
 paged stage engines by default or dense ones with ``--dense``.  Every
 node's engine lives on the one device (``--device``, CUDA by default), as
 the reference plays every node in one process.  ``--arch`` names any arch
-of the port's registry: ``smollm_360m``, ``olmo_1b``, ``starcoder2_7b`` or
-``chameleon_34b``.
+of the port's registry: ``smollm_360m``, ``olmo_1b``, ``starcoder2_7b``,
+``chameleon_34b`` or ``gemma3_12b``.  gemma3's stack mixes windowed and
+global layers, so it serves with ``--dense`` only: its paged paths
+(``--paged``, ``--cluster`` without ``--dense``) are ROADMAP queue 1 item 7
+(c2) and raise before any weights are drawn:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b \
+      --cluster A100,L4 --stages 2 --dense --prompt 600,1100,1500,2100 \
+      --new-tokens 16 --max-len 2128
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --cluster A100,L4 --stages 2 --batch 4 --prompt 40 --new-tokens 16
@@ -74,6 +80,7 @@ from repro_torch.core import (MILPOptions, ModelProfile, make_serving_cluster,
                               plan)
 from repro_torch.core.cluster import COORDINATOR
 from repro_torch.models import init, resolve_device
+from repro_torch.models.paged import all_blocks_paged
 from repro_torch.serving.autoscaler import Autoscaler
 from repro_torch.serving.engine import EngineConfig, PagedEngine, Request
 from repro_torch.serving.frontend import Frontend
@@ -85,6 +92,16 @@ def build_config(args, arch: Optional[str] = None):
     ``--smoke``, else the full one."""
     arch = arch or args.arch
     return get_smoke_config(arch) if args.smoke else get_config(arch)
+
+
+def require_all_paged(cfg) -> None:
+    """The paged paths serve all-paged stacks only: raise for a hybrid one
+    (windowed layers keep dense caches) before any weights are drawn."""
+    if not all_blocks_paged(cfg):
+        raise NotImplementedError(
+            f"paged serving of {cfg.name} (a hybrid stack: windowed layers "
+            "keep dense caches) is not ported to repro_torch yet (ROADMAP "
+            "queue 1 item 7 (c2)); serve it with --cluster ... --dense")
 
 
 def make_plan(cfg, args):
@@ -147,6 +164,8 @@ def build_runtime(cfg, args, params=None, *, draft=None, transport=None,
     the links of an in-process run.  With ``--serve`` an in-process
     runtime runs on the wall clock.  Returns (runtime, plan)."""
     dev = resolve_device(args.device)
+    if not args.dense:
+        require_all_paged(cfg)
     p = plan if plan is not None else make_plan(cfg, args)
     if verbose:
         for node, rng_ in sorted(p.placement.assignment.items()):
@@ -270,6 +289,7 @@ def run_paged(cfg, args, params=None, *, verbose: bool = True):
     for prompts past the 16-token chunk, paged attention decode.  Returns
     (engine, requests, seconds)."""
     dev = resolve_device(args.device)
+    require_all_paged(cfg)
     ec = EngineConfig(max_batch=args.batch, max_len=args.max_len,
                       prompt_len=min(16, args.max_len))
     if params is None:

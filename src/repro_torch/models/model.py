@@ -9,11 +9,13 @@ the reference's layout, params (and dense caches) stacked on a leading
 becomes a Python loop over that axis.  Every prefill attention goes through
 ``chunked_attention``, the flash prefill attention kernel.
 
-The port carries decoders whose every block is full-attention GQA (MHA
-included) with a dense FFN: RMSNorm, LayerNorm or the non-parametric
-LayerNorm; SwiGLU or the plain GELU FFN; tied or untied embeddings
-(smollm, olmo, starcoder2, chameleon).  MoE, MLA, windowed or SSM blocks
-and encoder-decoders are not ported yet and raise in ``check_ported``.
+The port carries decoders whose every block is GQA attention (MHA
+included), full, local or sliding-window (dense caches of a windowed block
+are rings of ``window`` slots), with a dense FFN: RMSNorm, LayerNorm or
+the non-parametric LayerNorm; SwiGLU or the plain GELU FFN; tied or untied
+embeddings (smollm, olmo, starcoder2, chameleon, gemma3).  MoE, MLA or SSM
+blocks and encoder-decoders are not ported yet and raise in
+``check_ported``.
 """
 from __future__ import annotations
 
@@ -32,17 +34,19 @@ from .moe import ffn_apply, ffn_spec
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is in the families the port carries: every
-    block full-attention GQA with a dense FFN, decoder-only (any norm the
-    reference has, either FFN, tied or untied embeddings)."""
+    block GQA attention, full, local or sliding-window, with a dense FFN,
+    decoder-only (any norm the reference has, either FFN, tied or untied
+    embeddings)."""
     bad = [b for b in cfg.blocks
-           if b.kind != "attn" or b.attn != "full" or b.moe]
+           if b.kind != "attn" or b.attn not in ("full", "local", "swa")
+           or b.moe]
     if (bad or cfg.mla_kv_lora_rank or cfg.is_encoder_decoder
             or cfg.d_ff <= 0):
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA, windowed or SSM blocks and "
-            "encoder-decoders are not ported yet; the port carries "
-            "all-full-attention GQA decoders with a dense FFN (ROADMAP "
-            "queue 1 item 7)")
+            f"{cfg.name}: MoE, MLA or SSM blocks and encoder-decoders are "
+            "not ported yet; the port carries GQA decoders (full, local or "
+            "sliding-window attention) with a dense FFN (ROADMAP queue 1 "
+            "item 7)")
 
 
 # ---------------------------------------------------------------------------

@@ -92,7 +92,7 @@ def stage_cache_init_paged(cfg: ModelConfig, layers: LayerRange, batch: int,
         if not is_paged_block(cfg, b):
             raise NotImplementedError(
                 f"layer {l} of {cfg.name} is not paged; dense fallback "
-                "caches are not ported yet")
+                "caches are not ported yet (ROADMAP queue 1 item 7 (c2))")
         out.append({})
     return out
 

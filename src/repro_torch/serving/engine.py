@@ -15,7 +15,7 @@ Two engines share the Request/EngineConfig API:
     blocks (and decode preempts the newest request, recompute-on-readmit)
     when the pool is exhausted.  Only all-paged stacks are ported: the
     hybrid branch (``absorb_dense_prefill``) raises (ROADMAP queue 1
-    item 7).
+    item 7 (c2)); a hybrid stack (gemma3) serves through ``Engine``.
 
 Both run on ``device`` (CUDA unless the caller asks for the CPU) and
 sample on the host from float32 logits.
@@ -246,7 +246,7 @@ class PagedEngine(_EngineBase):
             raise NotImplementedError(
                 f"{cfg.name}: paged serving of a hybrid stack "
                 "(absorb_dense_prefill) is not ported yet (ROADMAP queue 1 "
-                "item 7)")
+                "item 7 (c2))")
         super().__init__(cfg, params, engine_cfg, rng_seed, device)
         ec = engine_cfg
         if num_pages is None:

@@ -119,8 +119,9 @@ over a peer link.  ``kill_worker`` SIGKILLs one; ``fail_node`` +
 re-enters the placement; ``shutdown`` reaps them all.
 
 Not ported yet (the arguments raise; ROADMAP queue 1): int8 KV pools
-(item 1, and with them the int8 handoff over the wire) and models that are
-not all-paged (item 7).
+(item 1, and with them the int8 handoff over the wire) and paged serving
+of a stack that is not all-paged (item 7 (c2)); such a stack (gemma3's
+local and global layers) serves with ``paged=False``.
 """
 from __future__ import annotations
 
@@ -292,7 +293,7 @@ class _Job:
         return self.next_j - len(self.req.output)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet "
                                f"(ROADMAP queue 1 item {item})")
 
@@ -324,8 +325,13 @@ class ClusterRuntime:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if kv_dtype == "int8":
             raise _not_ported("int8 KV serving", 1)
-        if not all_blocks_paged(cfg):
-            raise _not_ported(f"serving {cfg.name} (not all-paged)", 7)
+        if paged and not all_blocks_paged(cfg):
+            # the reference serves a hybrid stack paged with single-shot
+            # prefill (repro/serving/runtime.py: ``_chunked``); the port
+            # serves it dense only
+            raise _not_ported(f"paged serving of {cfg.name} (a hybrid "
+                              "stack: windowed blocks keep dense caches)",
+                              "7 (c2)")
         self.cfg = cfg
         self.params = params
         self.ec = engine_cfg

@@ -349,8 +349,9 @@ class PagedStageEngine(_StageEngineBase):
         self.n_paged = stage_num_paged_layers(cfg, layers)
         if self.n_paged == 0 or not all_blocks_paged(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: only all-paged stacks are ported (dense and "
-                "hybrid stage engines are ROADMAP queue 1 work)")
+                f"{cfg.name}: only all-paged stacks are ported; a paged "
+                "stage engine of a hybrid stack is ROADMAP queue 1 item 7 "
+                "(c2)")
         if num_pages is None:
             num_pages = full_rectangle_pages(cfg, max_batch=ec.max_batch,
                                              max_len=ec.max_len,

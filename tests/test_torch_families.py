@@ -99,7 +99,7 @@ def shifted_inputs(d, seed):
 
 # --- the registry ------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["smollm_360m"] + ARCHS)
+@pytest.mark.parametrize("arch", ["smollm_360m"] + ARCHS + ["gemma3_12b"])
 def test_registry_names_the_ported_archs(arch):
     """The full config and SMOKE of each ported arch equal the
     reference's, field by field."""
@@ -123,10 +123,22 @@ UNPORTED = {
 
 @pytest.mark.parametrize("kind", list(UNPORTED))
 def test_unported_blocks_still_raise(kind):
+    """MoE, MLA, SSM blocks and encoder-decoders raise in ``param_specs``.
+    Windowed GQA is ported on the dense paths (gemma3), so a windowed
+    stack builds its params and raises on the paged paths instead, naming
+    item 7 (c2)."""
     cfg = dataclasses.replace(get_smoke_config("starcoder2_7b"),
                               **UNPORTED[kind])
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tmodel.param_specs(cfg)
+    if kind != "windowed":
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            tmodel.param_specs(cfg)
+        return
+    params = tmodel.init(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 7 \(c2\)"):
+        PagedEngine(cfg, params, EC, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 7 \(c2\)"):
+        ClusterRuntime(cfg, params, two_node_plan(cfg), EC, paged=True,
+                       device="cpu")
 
 
 def test_unknown_norm_and_ffn_raise():

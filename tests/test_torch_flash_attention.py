@@ -33,7 +33,7 @@ JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 # B, H, KH, Sq, Sk, D, causal, window: ``FLASH_SHAPES`` of
-# tests/test_kernels.py, then G = 3, B = 3 and Sq in {1, 17, 65}
+# tests/test_kernels.py, then G = 3, B = 3, Sq in {1, 17, 65} and D = 256
 SHAPES = [
     (1, 4, 4, 128, 128, 64, True, 0),
     (2, 8, 2, 256, 256, 128, True, 0),       # GQA
@@ -49,9 +49,11 @@ SHAPES = [
     (1, 6, 2, 17, 65, 16, True, 8),          # Sq < Sk, window
     (1, 6, 2, 65, 17, 16, True, 0),          # Sq > Sk
     (1, 4, 2, 65, 17, 16, True, 8),          # rows with no key (ignored)
+    (1, 4, 2, 64, 64, 256, True, 16),        # gemma3's head dim, window
+    (2, 4, 2, 40, 40, 256, True, 0),         # gemma3's head dim, causal
 ]
 # interpret mode is slow: the Pallas kernel itself on these
-INTERPRET = [SHAPES[i] for i in (4, 6, 7, 11, 12, 13)]
+INTERPRET = [SHAPES[i] for i in (4, 6, 7, 11, 12, 13, 14)]
 
 
 def _qkv(shape, dt, seed=0):

@@ -4,7 +4,7 @@ The bf16 kernel in ``repro_torch/csrc/flash_attention.cu`` runs only on the
 card (its tests here are marked ``cuda``, with one for the backward
 beside them; this file imports no JAX, so they
 run on a card without it: ``pytest --noconftest -m cuda`` on this file).  Here a tile-level model of its arithmetic in plain torch (kv tiles
-of 128 keys, 64 at D = 128; fp32 online softmax in exp2 form; P split into
+of 128 keys, 64 at D = 128 and 256; fp32 online softmax in exp2 form; P split into
 bf16 hi and lo parts for two P.V products into one fp32 accumulator; one
 bf16 rounding at the end) is held to the bound ``chip_smoke.py`` holds the kernel to: each
 element within 2**-7 * |plain| + 1e-5 of ``flash_attention_ref``, the port's
@@ -31,7 +31,7 @@ LOG2E = 1.4426950408889634
 
 def tile(D):
     """Keys per kv tile (Cfg<D>::kBN in the source)."""
-    return 64 if D == 128 else 128
+    return 64 if D >= 128 else 128
 
 
 def tc_model(q, k, v, *, causal, window, split=True):
@@ -97,7 +97,7 @@ MASKS = {"causal": dict(causal=True, window=0),
 
 # S crosses the 128-row query tiles and the kv tiles; KH = 2
 CASES = [(G, S, 64) for G in (1, 3) for S in (1, 127, 128, 129, 511)]
-CASES += [(3, 129, 16), (3, 129, 128)]
+CASES += [(3, 129, 16), (3, 129, 128), (2, 129, 256)]
 
 
 @pytest.mark.parametrize("mask", MASKS)
@@ -202,7 +202,7 @@ def test_cuda_bf16_refuses_what_tma_cannot_read():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 def test_cuda_tc_kernel_within_one_ulp(D):
     """On the card: the tensor-core kernel against the plain version, each
     element within 2**-7 * |plain| + 1e-5, across the tile edges (S = 129,
@@ -247,4 +247,22 @@ def test_cuda_bf16_bwd_refuses_what_tma_cannot_read():
     for do in (flat[1:].view(1, 4, 8, 64), padded):
         with pytest.raises(ValueError, match="16-byte loads"):
             k2.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    assert k2.bwd_launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_refuses_head_dim_256():
+    """On the card: K2's forward runs at D = 256 (gemma3), its backward has
+    no D = 256 instance yet and raises ValueError naming ROADMAP queue 2
+    item 1, in bf16 and f32, launching nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q, k, v = (t.cuda() for t in _inputs(1, 4, 2, 40, 256, seed=2))
+    before = k2.bwd_launches
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (t.to(dt) for t in (q, k, v))
+        lse = torch.empty(1, 4, 40, device="cuda")
+        o = flash_attention(q, k, v, lse=lse)
+        with pytest.raises(ValueError, match="queue 2 item 1"):
+            k2.flash_attention_bwd(q, k, v, o, o, lse=lse)
     assert k2.bwd_launches == before
