@@ -5,13 +5,16 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device   — prints the card's name and power limit (nvidia-smi); TF32
-                off for matmuls and convolutions.
+                off for matmuls and convolutions; the CPU's runs flush
+                denormals to 0.
   2. build    — compiles the three kernel sources (paged_attention.cu,
                 K1; flash_attention.cu, K2, D 16/64/128/256, the D=256
                 tensor-core instance two warpgroups without a producer;
                 flash_attention_bwd.cu, K2's backward: delta, and dK/dV
                 and dQ on the tensor cores for bf16 or the CUDA cores for
-                f32) with nvcc for sm_90a from ``src/repro_torch/csrc``,
+                f32, D 16/64/128/256, the D=256 dK/dV instance's two
+                warpgroups holding dV and dK apart) with nvcc for sm_90a
+                from ``src/repro_torch/csrc``,
                 the three builds started together; prints each instance's
                 registers, shared memory and spills (-Xptxas -v); an
                 instance that spills, or a missing D=256 forward instance,
@@ -61,8 +64,6 @@ Phases (any failure raises and the script exits non-zero):
                 bit-equal to the call without it, one launch, ``lse``
                 within 1e-4 of ``attention_lse_ref`` (log2 domain), +inf
                 exactly on the rows that see no key (D 16/64/128/256).
-                K2's backward at D=256 raises ValueError (no instance:
-                ROADMAP queue 2 item 1), f32 and bf16, launching nothing.
   5. serving  — full-width smollm-360m in bf16 through ``launch/serve.py
                 --cluster A100,L4 --stages 2``: paged (4 x 40-token prompts,
                 16 new tokens; K1 launches == decode passes x paged layers,
@@ -221,13 +222,22 @@ Phases (any failure raises and the script exits non-zero):
                 both ways, rows that see no key (exactly 0); fused-qkv
                 (B,S,H,D) views through the autograd function, and (o)'s
                 own shape (B=8, S=512, H=15, KH=5, D=64, causal) in the
-                model layout through it.  f32: atol
+                model layout through it; at D=256 (gemma3's heads,
+                G = 2, and G = 1) every mask, window 1024 among them, x S
+                in {1, 37, 64, 65, 511, 1100, 2048}, Sq != Sk both ways
+                with rows that see no key, fused-qkv views and phase 17's
+                training shape (B=2, S=2048, causal and window 1024)
+                through the autograd function.  f32: atol
                 = rtol = 1e-4; bf16: each element within 2**-7 x |plain| +
                 2**-10 x max|plain| of its tensor + 1e-5; a call without
                 lse raises ValueError.  Timed (kernel, CUDA graph, plain,
                 SDPA's backward as the yardstick, eager and in a CUDA
-                graph) at the training shape B=8, H=15, KH=5, S=512, D=64
-                and at K2's timing shapes.  (o) full-width smollm-360m in bf16
+                graph) at the training shape B=8, H=15, KH=5, S=512, D=64,
+                at K2's timing shapes, and at gemma3's heads (H=16, KH=8,
+                D=256) at B=1, S=4096 and at phase 17's B=2, S=2048,
+                causal and with window 1024 (SDPA's backward then through
+                a dense boolean mask on K/V repeated to 16 heads).
+                (o) full-width smollm-360m in bf16
                 through ``make_train_step``: AdamW (lr 3e-3, warmup 5, no
                 weight decay) 30 steps on one 8 x 512 batch from ``make_batch``
                 (finite; mean of the last 5 losses below the first 5's),
@@ -265,8 +275,8 @@ Phases (any failure raises and the script exits non-zero):
                 std makes this random model amplify fp32 rounding); on
                 fan-in-scaled weights those logits within atol=rtol=1e-3
                 and greedy tokens equal.
-  16. gemma3-12b — runs last.  The whole model (48 layers: five local of
-                window 1024 to each global one; d=3840, H=16/KH=8, D=256,
+  16. gemma3-12b — runs after phase 15.  The whole model (48 layers:
+                five local of window 1024 to each global one; d=3840, H=16/KH=8, D=256,
                 d_ff 15360, vocab 262,144; ~23.5 GB of bf16 weights drawn
                 on the card) through ``launch/serve.py --cluster A100,L4
                 --stages 2 --dense`` (phase 5's dense checks) and through
@@ -278,12 +288,32 @@ Phases (any failure raises and the script exits non-zero):
                 raise item 7 (c2).  Then one super-block (6 layers) in f32
                 at full width, the dense cluster on cuda and on the CPU on
                 an 1100-token prompt, under phase 15's two gates.
+  17. gemma3-12b training — runs last.  Full width in bf16 at one
+                super-block (6 of 48 layers, 2.35 B params: PERF.md
+                section 4 reckons the device memory that chose it) through
+                ``make_train_step`` on one 2 x 2048 batch from
+                ``make_batch`` (past the window of 1024) on the fan-in-
+                scaled copy of init's weights: AdamW at TRAIN_OPT for 30
+                steps (the loss below its first value; whether it reached
+                half of it printed); per step exactly K2 6 launches (5
+                windowed), K2's backward 18 (15 windowed), K1 none; step
+                time, training tokens/s, peak memory, one profiled step
+                with K2-bwd's share of device time; the first step's
+                gradients through K2's backward against its plain version
+                on the card, the largest relative gap in norm within 4x
+                the one that a bf16 rounding of the plain dq, dk and dv
+                makes; remat none and full over 3 steps, losses and
+                params bit-equal.  Then one super-block in f32 at full
+                width, the loss and every gradient on a 1 x 1100 batch on
+                cuda and on the CPU, under phase 15's two gates (the
+                largest gap over a leaf's largest value).
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -326,6 +356,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.worker import run_worker  # noqa: E402
 from repro_torch.models import init  # noqa: E402
 from repro_torch.models.common import map_tree, tree_leaves  # noqa: E402
+from repro_torch.models.model import loss_fn  # noqa: E402
 from repro_torch.serving.autoscaler import Autoscaler  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
 from repro_torch.serving.frontend import Frontend  # noqa: E402
@@ -802,8 +833,8 @@ def k2_checks():
     window 1024 and bidirectional; window 100; Sq != Sk; phase 16's
     prefill shapes); an empty q launches nothing.  Every bf16 launch goes
     through the tensor-core kernel.  Prints one line per (dtype, D) group
-    and returns the worst error over its limit of each dtype and the
-    largest abs error."""
+    and returns the largest abs error, the worst error over its limit of
+    each dtype and the number of D=256 cases."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     groups = {}           # (dtype, D or case kind) -> [(err, worst, name)]
 
@@ -898,32 +929,8 @@ def k2_checks():
           f"tensor-core kernel ({n_bf16} launches); empty q (Sq=0): no "
           f"launch, none counted")
     err = max(e for rows in groups.values() for e, _, _ in rows)
-    return err, worst
-
-
-def k2_bwd_refuses_d256():
-    """K2's backward has no D=256 instance (ROADMAP queue 2 item 1's
-    backward): at gemma3's heads it raises ValueError, f32 and bf16,
-    launching nothing."""
-    H, KH, D = family_heads(GEMMA3)
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
-    before = k2.bwd_launches
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = k2_inputs(1, H, KH, 64, 64, D, dtype, gen)
-        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=DEVICE)
-        o = flash_attention(q, k, v, lse=lse)
-        try:
-            k2.flash_attention_bwd(q, k, v, o, o, lse=lse)
-        except ValueError as e:
-            require("queue 2 item 1" in str(e), f"the D=256 backward raised "
-                    f"another ValueError: {e}")
-            msg = str(e)
-        else:
-            require(False, f"flash_attention_bwd at D=256 ({dtype}) did not "
-                           "raise")
-    require(k2.bwd_launches == before, "the D=256 backward launched")
-    print(f"  flash_attention_bwd at H={H} KH={KH} D={D}, f32 and bf16: "
-          f"ValueError ({msg}), no launch")
+    return err, worst, sum(len(r) for (_, key), r in groups.items()
+                           if key == "D=256")
 
 
 K2_LSE_TOL = 1e-4       # log2 domain: the same fp32 sums in another order
@@ -1126,7 +1133,7 @@ def kb_check(name, q, k, v, mask, *, bshd=False):
     (strided views), as training calls it.  Returns (max abs error, worst
     error over its limit); a case out of bounds is printed and fails the
     run."""
-    kw = K2_MASKS[mask]
+    kw = {**K2_MASKS, **K2_LOCAL_MASK}[mask]
     gen = torch.Generator(device=DEVICE).manual_seed(q.shape[2] * 7 + 1)
     do = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
     hm = [x.transpose(1, 2) for x in (q, k, v, do)] if bshd else \
@@ -1173,8 +1180,9 @@ def kb_checks():
     in the model layout.  bf16 runs on the tensor-core kernels, f32 on the
     CUDA-core ones, both from the forward's lse.  Rows that see no key get
     exactly 0.  Every call counts BWD_KERNELS launches; a call without lse
-    raises ValueError and launches nothing.  Returns (max abs error, worst
-    error over its limit of each dtype)."""
+    raises ValueError and launches nothing.  Then the D=256 cases
+    (``kb_d256_cases``).  Returns (max abs error, worst error over its limit
+    of each dtype, the number of D=256 cases)."""
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     groups = {}
     before = k2.bwd_launches
@@ -1214,12 +1222,13 @@ def kb_checks():
                            qkv[:, :, H + KH:])
                 run(dt, "(B,S,H,D)", f"{dt} autograd, fused-qkv views S={S} "
                     f"H={H} KH={KH} D={D}", q, k, v, mask, bshd=True)
-        B, H, KH, S, D = KB_TIMING_SHAPES["train"]     # as training calls it
+        B, H, KH, S, D, _ = KB_TIMING_SHAPES["train"]  # as training calls it
         q = torch.randn(B, S, H, D, generator=gen, device=DEVICE).to(dtype)
         k, v = (torch.randn(B, S, KH, D, generator=gen,
                             device=DEVICE).to(dtype) for _ in range(2))
         run(dt, "train", f"{dt} autograd, training shape B={B} S={S} H={H} "
             f"KH={KH} D={D}", q, k, v, "causal", bshd=True)
+        kb_d256_cases(run, dt, dtype, gen)
     for (dt, key), rows in groups.items():
         err, worst, name = max(rows, key=lambda r: r[1])
         print(f"  {dt:<9} {key:<10} {len(rows):>3} cases: max|kernel-plain| "
@@ -1247,44 +1256,117 @@ def kb_checks():
           f"+ {KB_BF16_ATOL:g}); {k2.BWD_KERNELS} launches a call; without "
           f"lse: ValueError, no launch")
     err = max(e for rows in groups.values() for e, _, _ in rows)
-    return err, worst
+    return err, worst, sum(len(r) for (_, key), r in groups.items()
+                           if key == "D=256")
 
 
-def kb_bound(q, k, causal):
+# gemma3's training (phase 17): its masks, and S across the 64-key and
+# 64 / 128-row tiles, the window of 1024 and phase 17's sequence
+KB_D256_MASKS = ("causal", "causal+window1024", "bidirectional",
+                 "causal+window100")
+KB_D256_SEQS = KB_SEQS + (1100, 2048)
+
+
+def kb_d256_cases(run, dt, dtype, gen):
+    """K2's backward at D=256 (the dK/dV kernel's split warpgroups and the
+    dQ kernel's 32-key ring in bf16, 32-row tiles in f32): every mask of
+    KB_D256_MASKS at gemma3's heads (H=16, KH=8: G = 2) and at G = 1 (H =
+    KH = 8) x S in KB_D256_SEQS, B 1 or 2 in turn; Sq != Sk both ways with
+    rows that see no key (window 100, Sq > Sk + 99; exactly 0); fused-qkv
+    (B,S,H,D) views through the autograd function; phase 17's training
+    shape (B=2, S=2048) through it, causal and with window 1024."""
+    H, KH, D = family_heads(GEMMA3)
+    n = 0
+    for (h, kh), S, mask in itertools.product(((H, KH), (KH, KH)),
+                                              KB_D256_SEQS, KB_D256_MASKS):
+        B = (1, 2)[n % 2]
+        n += 1
+        q, k, v = k2_inputs(B, h, kh, S, S, D, dtype, gen)
+        run(dt, "D=256", f"{dt} B={B} H={h} KH={kh} S={S} D={D}", q, k, v,
+            mask)
+    for (Sq, Sk), mask in itertools.product(
+            ((37, 511), (511, 37), (300, 1100), (1100, 300)), KB_D256_MASKS):
+        q, k, v = k2_inputs(2, H, KH, Sq, Sk, D, dtype, gen)
+        dq, _, _ = run(dt, "D=256", f"{dt} B=2 H={H} KH={KH} Sq={Sq} "
+                       f"Sk={Sk} D={D}", q, k, v, mask)
+        w = {**K2_MASKS, **K2_LOCAL_MASK}[mask]["window"]
+        if w and Sq > Sk + w - 1:               # rows that see no key
+            require(not dq[:, :, Sk + w - 1:].any(),
+                    "flash_attention_bwd at D=256: a row that sees no key "
+                    "got a gradient")
+    for mask in KB_D256_MASKS:
+        qkv = torch.randn(2, 300, H + 2 * KH, D, generator=gen,
+                          device=DEVICE).to(dtype)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KH], qkv[:, :, H + KH:]
+        run(dt, "D=256", f"{dt} autograd, fused-qkv views S=300 H={H} "
+            f"KH={KH} D={D}", q, k, v, mask, bshd=True)
+    B, S = GEMMA3_TRAIN_BATCH, GEMMA3_TRAIN_SEQ
+    for mask in KB_D256_MASKS[:2]:
+        q = torch.randn(B, S, H, D, generator=gen, device=DEVICE).to(dtype)
+        k, v = (torch.randn(B, S, KH, D, generator=gen,
+                            device=DEVICE).to(dtype) for _ in range(2))
+        run(dt, "D=256", f"{dt} autograd, phase 17's training shape B={B} "
+            f"S={S} H={H} KH={KH} D={D}", q, k, v, mask, bshd=True)
+
+
+def kb_bound(q, k, causal, window=0):
     """Least time of the backward: its bytes (q, o, do read once and dq
     written once: 4 q-sized; k, v read once and dk, dv written once: 4
     k-sized) over HBM bandwidth vs its five products, 2.5x the forward's
     FLOPs (10*D per visible pair per query head), at the dtype's peak; the
     larger bounds it."""
     nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
-    flops = 2.5 * k2_work(q, k, causal)[1]
+    flops = 2.5 * k2_work(q, k, causal, window)[1]
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations"), flops
 
 
-KB_TIMING_SHAPES = {       # key -> (B, H, KH, S, D), causal, bf16
-    "train": (8, 15, 5, 512, 64),       # phase 14's training batch
-    "S511": (1, 15, 5, 511, 64),
-    "S4096": (1, 15, 5, 4096, 64),
-    "D128_S4096": (1, 32, 8, 4096, 128),
+KB_TIMING_SHAPES = {  # key -> (B, H, KH, S, D, window), causal, bf16
+    "train": (8, 15, 5, 512, 64, 0),       # phase 14's training batch
+    "S511": (1, 15, 5, 511, 64, 0),
+    "S4096": (1, 15, 5, 4096, 64, 0),
+    "D128_S4096": (1, 32, 8, 4096, 128, 0),
+    # gemma3's heads (H=16, KH=8, D=256): its global and local layers at
+    # S=4096, and phase 17's training batch (B=2, S=2048)
+    "gemma3_S4096": (1, 16, 8, 4096, 256, 0),
+    "gemma3_S4096_w1024": (1, 16, 8, 4096, 256, 1024),
+    "gemma3_train": (2, 16, 8, 2048, 256, 0),
+    "gemma3_train_w1024": (2, 16, 8, 2048, 256, 1024),
 }
 
 
-def sdpa_bwd_graph_ms(leaves, do, calls=5):
-    """SDPA's backward alone without the host's launch: the forward runs
-    once on a stream of its own, outside the graph, and ``calls`` backward
-    calls are captured on that stream (autograd runs each backward op on
-    its forward op's stream), replayed and timed as in ``graph_ms``."""
+def sdpa_forward(q, k, window):
+    """``scaled_dot_product_attention`` as a function of (q, k, v)
+    computing K2's function, whose backward is K2-bwd's yardstick (timed
+    only, the port never calls it): causal through ``is_causal`` with GQA;
+    with a window through a dense boolean mask on K/V repeated to the
+    query heads (its only route; the repeat is differentiated too)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not window:
+        return lambda *x: sdpa(*x, is_causal=True, enable_gqa=True)
+    S, G = q.shape[2], q.shape[1] // k.shape[1]
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = (j <= i) & (i - j < window)
+    return lambda q, k, v: sdpa(q, k.repeat_interleave(G, 1),
+                                v.repeat_interleave(G, 1), attn_mask=mask)
+
+
+def sdpa_bwd_graph_ms(leaves, do, fwd, calls=5):
+    """SDPA's backward alone without the host's launch: the forward
+    (``sdpa_forward``'s ``fwd``) runs once on a stream of its own, outside
+    the graph, and ``calls`` backward calls are captured on that stream
+    (autograd runs each backward op on its forward op's stream), replayed
+    and timed as in ``graph_ms``."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         # leaves of its own, whose gradient accumulators live on this
         # stream too
         leaves = [x.detach().requires_grad_(True) for x in leaves]
-        out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        out = fwd(*leaves)
         torch.autograd.grad(out, leaves, do, retain_graph=True)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
@@ -1295,27 +1377,28 @@ def sdpa_bwd_graph_ms(leaves, do, calls=5):
 
 
 def kb_timings():
-    """K2's backward (causal, bf16) at the training shape and at K2's
-    timing shapes: CUDA events around each call (the host's launch
-    included), in turns with its plain version and with the backward of
-    ``scaled_dot_product_attention`` (autograd of the same function, the
-    yardstick; the port never calls it), then both without the host's
-    launch (``graph_ms``, ``sdpa_bwd_graph_ms``), beside its bound; the
-    kernel's time over SDPA's, eager and in a graph."""
+    """K2's backward (causal, bf16; gemma3's rows also with its window of
+    1024) at the training shapes and at K2's timing shapes: CUDA events
+    around each call (the host's launch included), in turns with its plain
+    version and with the backward of ``scaled_dot_product_attention``
+    (autograd of the same function, ``sdpa_forward``: the yardstick; the
+    port never calls it), then both without the host's launch
+    (``graph_ms``, ``sdpa_bwd_graph_ms``), beside its bound; the kernel's
+    time over SDPA's, eager and in a graph."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for key, (B, H, KH, S, D) in KB_TIMING_SHAPES.items():
+    for key, (B, H, KH, S, D, w) in KB_TIMING_SHAPES.items():
         q, k, v = k2_inputs(B, H, KH, S, S, D, torch.bfloat16, gen)
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=DEVICE)
-        o = flash_attention(q, k, v, causal=True, lse=lse)
+        o = flash_attention(q, k, v, causal=True, window=w, lse=lse)
         do = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        lib_fwd = sdpa_forward(q, k, w)
+        lib_out = lib_fwd(*leaves)
 
         def kernel():
             return k2.flash_attention_bwd(q, k, v, o, do, causal=True,
-                                          lse=lse)
+                                          window=w, lse=lse)
 
         def library():
             return torch.autograd.grad(lib_out, leaves, do,
@@ -1324,11 +1407,16 @@ def kb_timings():
         t = time_turns({
             "kernel": (kernel, 20), "library": (library, 20),
             "plain": (lambda: flash_attention_bwd_ref(q, k, v, o, do,
-                                                      causal=True), 3)})
+                                                      causal=True,
+                                                      window=w), 3)})
         dev = graph_ms(kernel, calls=5)
-        lib_dev = sdpa_bwd_graph_ms(leaves, do)
-        bound_ms, bound_by, flops = kb_bound(q, k, True)
-        out[key] = dict(shape=f"B={B} H={H} KH={KH} S={S} D={D} causal bf16",
+        lib_dev = sdpa_bwd_graph_ms(leaves, do, lib_fwd)
+        bound_ms, bound_by, flops = kb_bound(q, k, True, w)
+        mask = f"causal, window {w}" if w else "causal"
+        out[key] = dict(shape=f"B={B} H={H} KH={KH} S={S} D={D} {mask} bf16",
+                        library=("sdpa backward, dense boolean mask on K/V "
+                                 "repeated to the query heads" if w else
+                                 "sdpa backward, is_causal, enable_gqa"),
                         ms=t["kernel"], plain_ms=t["plain"],
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=t["library"], graph_ms=dev,
@@ -1341,7 +1429,7 @@ def kb_timings():
         print(f"  {key} ({r['shape']}): kernel {r['ms']:.4f} ms, in a CUDA "
               f"graph {dev:.4f} ms = {r['tflops']:.2f} TFLOP/s (five "
               f"products), {100 * r['graph_bound_share']:.2f}% of the bound "
-              f"{bound_ms:.5f} ms ({bound_by}); sdpa backward "
+              f"{bound_ms:.5f} ms ({bound_by}); {r['library']} "
               f"{r['library_ms']:.4f} ms, in a CUDA graph {lib_dev:.4f} ms; "
               f"kernel / sdpa {r['over_library']:.2f}x eager, "
               f"{r['graph_over_library']:.2f}x in a graph; plain "
@@ -1364,7 +1452,9 @@ DRIVER_ARGV = ["--arch", "smollm_360m", "--batch", "4", "--seq", "256"]
 
 
 def counts():
-    return dict(k2=k2.launches, k2_bwd=k2.bwd_launches, k1=k1.launches)
+    return dict(k2=k2.launches, k2_window=k2.window_launches,
+                k2_bwd=k2.bwd_launches,
+                k2_bwd_window=k2.bwd_window_launches, k1=k1.launches)
 
 
 def reset_peak():
@@ -1381,13 +1471,15 @@ def train_run(cfg, params, train, batch, steps, name):
     """``steps`` steps of ``make_train_step`` from ``params`` on one batch;
     every launch count per step checked: K2 forward = layers x
     microbatches (x 2 under remat "full"), K2 backward = layers x
-    microbatches x BWD_KERNELS, K1 none.  Returns (params, losses, ms per
-    step)."""
+    microbatches x BWD_KERNELS, the windowed layers' share of each with a
+    window, K1 none.  Returns (params, losses, ms per step)."""
     step_fn = make_train_step(cfg, train)
     opt = init_train_state(cfg, train, params)
-    L, mb = cfg.num_layers, train.microbatches
-    want = dict(k2=L * mb * (2 if train.remat == "full" else 1),
-                k2_bwd=L * mb * k2.BWD_KERNELS, k1=0)
+    L, W, mb = cfg.num_layers, windowed_layers(cfg), train.microbatches
+    fwd = mb * (2 if train.remat == "full" else 1)
+    want = dict(k2=L * fwd, k2_window=W * fwd,
+                k2_bwd=L * mb * k2.BWD_KERNELS,
+                k2_bwd_window=W * mb * k2.BWD_KERNELS, k1=0)
     losses, times = [], []
     for _ in range(steps):
         before = counts()
@@ -1500,7 +1592,7 @@ def train_profile(cfg, params, train, batch, step_ms):
     if not rows:
         print("  training step: device time not measured (the trace holds "
               "no device events)")
-        return
+        return None
     busy = sum(ms for _, ms, _ in rows)
     ours = {k: sum(ms for key, ms, _ in rows
                    if any(n in key for n in names))
@@ -1517,6 +1609,8 @@ def train_profile(cfg, params, train, batch, step_ms):
                        sum(c for key, _, c in rows if name in key))] if n))
     for key, ms, n in rows[:8]:
         print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<6} {key[:90]}")
+    return dict(busy_ms=busy, busy_share=busy / step_ms, k2_ms=ours["K2"],
+                k2_bwd_ms=ours["K2-bwd"], k2_bwd_share=ours["K2-bwd"] / busy)
 
 
 def driver_check():
@@ -1656,6 +1750,7 @@ def zero_counts():
     k2.tc_launches = 0
     k2.window_launches = 0
     k2.bwd_launches = 0
+    k2.bwd_window_launches = 0
 
 
 def check_requests(cfg, reqs, new_tokens, served=None, rec=None):
@@ -3711,6 +3806,270 @@ def gemma3_cross_check(seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: gemma3-12b training at full width
+# ---------------------------------------------------------------------------
+
+# one batch of B x S from make_batch: S past the local layers' window of
+# 1024, so their masks cut keys
+GEMMA3_TRAIN_BATCH, GEMMA3_TRAIN_SEQ = 2, 2048
+# whole super-blocks (5 local layers and 1 global) phase 17 trains: the
+# device-memory reckoning in PERF.md section 4 chose one (two would hold
+# ~81 GB in AdamW's update alone, its old and new params and moments)
+GEMMA3_TRAIN_REPEATS = 1
+# AdamW steps at TRAIN_OPT on the fan-in-scaled weights: its lr of 3e-3
+# moves a matrix of d = 3840 (std 0.016) by ~20% a step, and the loss
+# spikes after the warm-up before it falls; it ends just above half its
+# first value, which is printed beside it and not gated: a halving decides
+# little about the backward (a partly wrong one trains as well)
+GEMMA3_TRAIN_STEPS = 30
+GEMMA3_REMAT_STEPS = 3
+# the f32 cross-check of the loss and every gradient: one super-block, one
+# sequence of this many tokens
+GEMMA3_XCHECK_SEQ = 1100
+
+
+def gemma3_training_phase(seed, card):
+    """Phase 17: gemma3-12b at full width and GEMMA3_TRAIN_REPEATS
+    super-blocks in bf16 through ``make_train_step`` on one batch from
+    ``make_batch``, on the ``fan_in_scaled`` copy of ``init``'s weights
+    (at one super-block init draws every block matrix at std 1/sqrt(1):
+    62x its fan-in's scale at d = 3840): AdamW (TRAIN_OPT)
+    GEMMA3_TRAIN_STEPS steps, the loss below its first value, every step's
+    launches exact (``train_run``: K2 and its backward in every layer, the
+    local layers' share windowed, K1 none); one step profiled; the first
+    step's gradients through K2's backward against its plain version
+    (``gemma3_plain_backward_check``); remat none and full over
+    GEMMA3_REMAT_STEPS steps, losses and params bit-equal.  Returns the
+    counts and rates."""
+    t_phase = time.perf_counter()
+    cfg = family_config(GEMMA3, GEMMA3_TRAIN_REPEATS)
+    B, S = GEMMA3_TRAIN_BATCH, GEMMA3_TRAIN_SEQ
+    print(f"  {cfg.name}: {cfg.num_layers} of {get_config(GEMMA3).num_layers}"
+          f" layers ({GEMMA3_TRAIN_REPEATS} super-block, "
+          f"{windowed_layers(cfg)} of window "
+          f"{max(b.window for b in cfg.blocks)}) at d={cfg.d_model}, "
+          f"H={cfg.num_heads}/KH={cfg.num_kv_heads} "
+          f"D={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size}, {cfg.param_dtype}; batch {B} x {S}",
+          flush=True)
+    release_device_memory()
+    reset_peak()
+    params = family_params(cfg, seed)
+    sync()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"  {n_params / 1e9:.3f} B params, {param_bytes(params) / 1e9:.2f} "
+          "GB drawn on the card")
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, batch_size=B,
+                                  seq_len=S), 0, device=DEVICE)
+    adamw = OptimizerConfig(name="adamw", **TRAIN_OPT)
+    train = TrainConfig(optimizer=adamw, remat="none")
+    params = fan_in_scaled(params)
+    reset_peak()
+    zero_counts()
+    _, losses, times = train_run(cfg, params, train, batch,
+                                 GEMMA3_TRAIN_STEPS, "gemma3 AdamW")
+    launches = counts()
+    peak = peak_gib()
+    ms = float(np.median(times[1:]))
+    tokens = B * S
+    halved = losses[-1] < losses[0] / 2
+    print(f"  AdamW on fan-in-scaled weights, remat none, "
+          f"{GEMMA3_TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (half the first {losses[0] / 2:.4f}: "
+          f"{'reached' if halved else 'not reached'}; printed, not gated); "
+          f"step {ms:.1f} ms median = {tokens / ms * 1e3:.0f} training "
+          f"tokens/s on {card}; peak device memory {peak:.2f} GiB; launches "
+          f"{launches}", flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]}")
+    require(losses[-1] < losses[0], f"gemma3: the loss {losses[-1]} is "
+            f"not below its first value {losses[0]}")
+    prof = train_profile(cfg, params, train, batch, ms)
+    plain = gemma3_plain_backward_check(cfg, params, batch, seed)
+
+    series, ends = {}, {}
+    for remat in ("none", "full"):
+        p, series[remat], _ = train_run(
+            cfg, params, TrainConfig(optimizer=adamw, remat=remat), batch,
+            GEMMA3_REMAT_STEPS, f"gemma3 remat {remat}")
+        ends[remat] = map_tree(lambda x: x.cpu(), p)   # off the card
+        del p
+    same = all(map(torch.equal, tree_leaves(ends["none"]),
+                   tree_leaves(ends["full"])))
+    print(f"  remat none / full, {GEMMA3_REMAT_STEPS} steps: losses "
+          f"{series['none']} / {series['full']}, final params bit-equal: "
+          f"{same}")
+    require(series["full"] == series["none"] and same,
+            f"gemma3: remat full's losses {series['full']} or params differ "
+            f"from none's {series['none']}")
+    del params, ends
+    release_device_memory()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 17 (bf16 runs) wall time {wall:.2f} s", flush=True)
+    return dict(layers=cfg.num_layers, params=n_params, launches=launches,
+                loss_first=losses[0], loss_last=losses[-1],
+                loss_halved=halved, plain_backward=plain, step_ms=ms,
+                tokens_s=tokens / ms * 1e3, peak_gib=peak, profile=prof,
+                wall_s=wall)
+
+
+def _loss_and_grads(cfg, params, batch, host=True):
+    """The loss and every gradient of ``loss_fn`` (remat none) on the
+    params' device, in ``tree_leaves`` order; host tensors unless
+    ``host`` is false."""
+    live = map_tree(lambda x: x.detach().requires_grad_(True), params)
+    loss, _ = loss_fn(cfg, live, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    move = (lambda t: t.cpu()) if host else (lambda t: t)
+    return [move(loss.detach())] + [move(g) for g in grads]
+
+
+def _grad_gap(a, b):
+    """The largest |a - b| of the loss and every gradient leaf, each over
+    the largest |b| of its leaf: one scale-free number for tensors whose
+    magnitudes differ by orders."""
+    return max((x - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
+               for x, y in zip(a, b))
+
+
+# phase 17's gate on K2's backward in the model: the first step's gradients
+# through the kernels within this many times the gap that one bf16
+# rounding of the plain backward's dq, dk and dv makes in them
+PLAIN_BWD_FACTOR = 4
+
+
+@contextlib.contextmanager
+def plain_k2_backward(apart=None):
+    """The autograd function's backward (``k2_ops``) through K2's plain
+    backward on the card, each row's log-sum-exp recomputed from its own
+    scores; with ``apart`` (a seeded generator) every element of its bf16
+    dq, dk and dv is moved one rounding: x (1 +- 2**-8), the sign drawn
+    from ``apart``, then rounded to bf16."""
+    def plain(q, k, v, o, do, *, causal, window, out, lse):
+        grads = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                        window=window)
+        for dst, g in zip(out, grads):
+            if apart is not None:
+                sign = torch.randint(0, 2, g.shape, device=g.device,
+                                     generator=apart)
+                g = g.float() * (1 + (2 * sign - 1) * 2.0 ** -8)
+            dst.copy_(g)
+    saved = k2_ops.flash_attention_bwd
+    k2_ops.flash_attention_bwd = plain
+    try:
+        yield
+    finally:
+        k2_ops.flash_attention_bwd = saved
+
+
+def _rel_gaps(a, b):
+    """||a - b|| / ||b|| of each gradient leaf, in fp32."""
+    return [torch.linalg.vector_norm(x.float() - y.float()).item()
+            / max(torch.linalg.vector_norm(y, dtype=torch.float32).item(),
+                  1e-30) for x, y in zip(a, b)]
+
+
+def gemma3_plain_backward_check(cfg, params, batch, seed):
+    """Phase 17's first step, bf16, on its batch and weights: every
+    gradient through K2's backward (exactly its launches) against the same
+    with the plain backward on the card (no launch), each leaf's gap in
+    norm over the plain gradient's norm; the largest within
+    PLAIN_BWD_FACTOR x the largest between the plain run and one whose
+    attention gradients are one bf16 rounding apart.  A wrong backward
+    (a mask, a head's share, a block of D = 256's columns) would move
+    dq, dk and dv, and every gradient upstream, by far more than a
+    rounding.  Returns the gaps and the limit."""
+    t0 = time.perf_counter()
+    before = counts()
+    kern = _loss_and_grads(cfg, params, batch, host=False)[1:]
+    mid = counts()
+    with plain_k2_backward():
+        plain = _loss_and_grads(cfg, params, batch, host=False)[1:]
+    with plain_k2_backward(torch.Generator(device=DEVICE)
+                           .manual_seed(seed + 2)):
+        apart = _loss_and_grads(cfg, params, batch, host=False)[1:]
+    after = counts()
+    want = cfg.num_layers * k2.BWD_KERNELS
+    require(mid["k2_bwd"] - before["k2_bwd"] == want
+            and after["k2_bwd"] == mid["k2_bwd"],
+            f"gemma3 plain-backward check: K2-bwd launches {before} -> "
+            f"{mid} -> {after}, not {want} through the kernels and none "
+            "through the plain version")
+    gaps, rounding = _rel_gaps(kern, plain), _rel_gaps(apart, plain)
+    del kern, plain, apart
+    release_device_memory()
+    gap, ref = max(gaps), max(rounding)
+    limit = PLAIN_BWD_FACTOR * ref
+    worst = max(g / max(r, 1e-30) for g, r in zip(gaps, rounding))
+    print(f"  first step's {len(gaps)} gradients through K2's backward vs "
+          f"its plain version on the card: largest ||kernel - plain|| / "
+          f"||plain|| {gap:.3e} against {ref:.3e} with the plain dq, dk, "
+          f"dv one bf16 rounding apart; limit {limit:.3e}; largest ratio "
+          f"of a leaf {worst:.3f} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    require(gap <= limit, f"gemma3: gradients through K2's backward differ "
+                          f"from the plain backward's by {gap:.3e} > "
+                          f"{limit:.3e}")
+    return dict(gap=gap, rounding=ref, limit=limit, worst_leaf_ratio=worst)
+
+
+def gemma3_training_cross_check(seed):
+    """Phase 17's f32 check: one super-block of gemma3-12b at full width in
+    f32, the loss and every gradient on one B=1 x GEMMA3_XCHECK_SEQ batch
+    on cuda (K2 and its backward) and on the CPU (plain versions), same
+    weights, under phase 15's two gates on ``_grad_gap``: on ``init``'s
+    weights within max(1e-3, FAMILY_ROUNDING_FACTOR x the gap between two
+    cuda runs whose embeddings are one rounding apart); on
+    ``fan_in_scaled`` weights within 1e-3.  No optimizer step: AdamW's
+    moments would double the CPU's 18.8 GB of params and gradients."""
+    cfg = family_config(GEMMA3, 1, "float32")
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, batch_size=1,
+                                  seq_len=GEMMA3_XCHECK_SEQ), 0, device="cpu")
+    on = {dev: {k: v.to(dev) for k, v in batch.items()}
+          for dev in (DEVICE, "cpu")}
+    params = family_params(cfg, seed)
+    print(f"  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} float32, "
+          f"{sum(x.numel() for x in tree_leaves(params)) / 1e9:.3f} B "
+          f"params; B=1 S={GEMMA3_XCHECK_SEQ}")
+    out = {}
+    for name, weights in (("init", lambda p: p), ("fan-in-scaled",
+                                                  fan_in_scaled)):
+        p = weights(params)
+        t0 = time.perf_counter()
+        g = _loss_and_grads(cfg, p, on[DEVICE])
+        t1 = time.perf_counter()
+        c = _loss_and_grads(cfg, map_tree(lambda x: x.cpu(), p), on["cpu"])
+        t2 = time.perf_counter()
+        gap = _grad_gap(g, c)
+        if name == "init":
+            sign = torch.randint(0, 2, p["embed"].shape, device=DEVICE,
+                                 generator=torch.Generator(
+                                     device=DEVICE).manual_seed(seed + 1))
+            apart = dict(p, embed=p["embed"] *
+                         (1 + (2 * sign - 1) * 2.0 ** -24))
+            rounding = _grad_gap(_loss_and_grads(cfg, apart, on[DEVICE]), g)
+            del apart, sign
+            limit = max(XCHECK_TOL["atol"],
+                        FAMILY_ROUNDING_FACTOR * rounding)
+            extra = (f" against {rounding:.3e} between two cuda runs whose "
+                     "embeddings are one rounding apart")
+        else:
+            rounding, limit, extra = None, XCHECK_TOL["atol"], ""
+        print(f"  {name} weights: loss cuda {g[0].item():.6f} cpu "
+              f"{c[0].item():.6f}; max over the loss and {len(g) - 1} "
+              f"gradients of max|cuda-cpu| / max|cpu| = {gap:.3e}{extra}; "
+              f"limit {limit:.3e} (cuda {t1 - t0:.1f} s, cpu {t2 - t1:.1f} "
+              "s)", flush=True)
+        require(gap <= limit, f"gemma3 f32 gradients on {name} weights "
+                              f"differ by {gap:.3e} > {limit:.3e}")
+        out[name] = dict(gap=gap, rounding=rounding, limit=limit)
+        del p, g, c
+        release_device_memory()
+    del params
+    release_device_memory()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def _kernel_name(mangled):
     """``..._25flash_attention_tc_kernelILi64EEEv...`` ->
@@ -3824,6 +4183,12 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The CPU runs of the cross-checks flush denormals to 0 (set before
+    # the first parallel op, so that every thread of the CPU's pool
+    # inherits it): on init's weights of full-width gemma3 the FFN's and
+    # attention's exponentials underflow into denormals, and the CPU's
+    # f32 products slowed ~12x on them; values below 1.2e-38 move no gate.
+    torch.set_flush_denormal(True)
 
     phase("build")
     build_all()
@@ -3832,9 +4197,8 @@ def main() -> int:
     k1_err, k1_worst = kernel_checks()
 
     phase("kernel K2: flash_attention vs plain")
-    k2_err, k2_worst = k2_checks()
+    k2_err, k2_worst, k2_d256_cases = k2_checks()
     k2_lse_err = k2_lse_checks()
-    k2_bwd_refuses_d256()
 
     args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE])
     cfg = serve.build_config(args)
@@ -3882,7 +4246,7 @@ def main() -> int:
 
     phase("training: K2's backward vs plain")
     t0 = time.perf_counter()
-    kb_err, kb_worst = kb_checks()
+    kb_err, kb_worst, kb_d256_count = kb_checks()
     tb = kb_timings()
 
     phase("training: full-width smollm-360m in bf16")
@@ -3934,6 +4298,16 @@ def main() -> int:
     gemma3["xcheck"] = gemma3_cross_check(args.seed)
     print(f"  phase 16 took {time.perf_counter() - t0:.2f} s")
 
+    phase(f"gemma3-12b training at full width: {GEMMA3_TRAIN_REPEATS} "
+          f"super-block, {GEMMA3_TRAIN_BATCH} x {GEMMA3_TRAIN_SEQ} tokens, "
+          "K2 and its backward at D=256 (window 1024 and full causal)")
+    t0 = time.perf_counter()
+    gemma3_train = gemma3_training_phase(args.seed, card)
+    phase("cross-check f32, one super-block (6 layers): gemma3's loss and "
+          "every gradient, cuda vs cpu")
+    gemma3_train["xcheck"] = gemma3_training_cross_check(args.seed)
+    print(f"  phase 17 took {time.perf_counter() - t0:.2f} s")
+
     print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
           f"{dense_tok_s:.2f} tokens/s on {card}")
     main1, main2 = t1["decode"], t2["S511"]
@@ -3983,6 +4357,10 @@ def main() -> int:
          "families_launches": {k: v["k2"] for k, v in families.items()},
          "gemma3_launches": {"cluster": gemma3["cluster"],
                              "engine": gemma3["engine"]},
+         "gemma3_train_launches": {
+             key: gemma3_train["launches"][key]
+             for key in ("k2", "k2_window")},
+         "d256_cases": k2_d256_cases,
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "lse_max_abs_err": k2_lse_err,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
@@ -3998,6 +4376,10 @@ def main() -> int:
          "replaces": "src/repro/models/attention.py:63 (no Pallas kernel: "
                      "the reference's autodiff of chunked_attention)",
          "launches": train["launches"]["k2_bwd"],
+         "gemma3_train_launches": {
+             key: gemma3_train["launches"][key]
+             for key in ("k2_bwd", "k2_bwd_window")},
+         "d256_cases": kb_d256_count,
          "kernels_per_call": k2.BWD_KERNELS,
          "max_abs_err": kb_err, "worst_err_over_limit": kb_worst,
          "ms": tb["train"]["ms"], "plain_ms": tb["train"]["plain_ms"],
@@ -4012,7 +4394,8 @@ def main() -> int:
         "training": {key: (float(val) if isinstance(val, np.floating)
                            else val)
                      for key, val in train.items() if key != "launches"},
-        "families": families, "gemma3": gemma3}
+        "families": families, "gemma3": gemma3,
+        "gemma3_training": gemma3_train}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,8 +62,9 @@
 // (hopper.cuh; ``tma_strides``).
 //   1. fa_bwd_delta_kernel: delta per query row.
 //   2. fa_bwd_dkdv_tc_kernel<D>, one CTA per (128-key tile, kv head,
-//      batch), key tiles of the most work first: K and V loaded once; the
-//      ring brings the Q and dO tiles (64 queries, 32 at D = 128, where 64
+//      batch; 64 keys at D = 256, below), key tiles of the most work
+//      first: K and V loaded once; the ring brings the Q and dO tiles
+//      (64 queries, 32 at D = 128, where 64
 //      leave too few registers for the two D-wide accumulators) of each of
 //      the kv head's G query heads that see the keys, with their lse and
 //      delta.  Per tile and consumer: S^T = K.Q^T and dP^T = V.dO^T (both
@@ -82,6 +83,32 @@
 // Consumers skip tiles wholly masked for their 64 rows.  Ordered dQ
 // accumulation across key tiles (FA3's) would drop one recomputation; it
 // is later work, since unordered atomics would break determinism.
+//
+// D = 256 (gemma3's training) has its own layouts, since the ones above
+// overrun both limits of a block there (232,448 B of shared memory, 255
+// registers a thread):
+//   * dK/dV: K and V of 128 keys are 128 KiB and a ring stage of 64-row Q
+//     and dO tiles 64 KiB (~320 KiB in all), and one group's dK and dV
+//     for 64 keys are 2 x 128 fp32 registers a thread before S, P or dP
+//     are counted.  Of the candidates (split the work between the groups;
+//     split D between two CTAs, each recomputing S^T and dP^T at full D;
+//     32-key tiles, which wgmma's 64-row M does not map onto) the first
+//     is taken: it computes nothing twice.  A CTA owns one 64-key tile (K
+//     and V 64 KiB, a 2-stage ring 130 KiB, P^T 16 KiB: 216,104 B), and
+//     both groups walk the same ring: group 0 computes S^T, P^T and dV,
+//     group 1 dP^T, dS^T and dK, each with one 128-register accumulator;
+//     P^T goes from group 0 to group 1 through shared memory in fp32,
+//     guarded by two named barriers (dkdv_split_consume).  The work of a
+//     step is balanced: one 64 x 64 x 256 product and two split ones each;
+//   * dQ: the layout above with 32-key K and V tiles (three stages of 32
+//     KiB beside Q and dO's 128 KiB: 230,456 B).  Its dQ accumulator is
+//     the forward's O at D = 256, 128 registers, with S and dP of a 32-key
+//     tile 16 each;
+//   * f32: the CUDA-core kernels with 32-row tiles (four 64-row tiles of
+//     D + 1 floats would take 263,168 B; 32-row ones take 136,064 B), and
+//     the delta kernel with two 16-byte loads a thread.
+// All three keep the rules above: no atomics, a fixed summation order,
+// P and dS split into hi and lo parts.
 #include "hopper.cuh"
 
 #include <type_traits>
@@ -120,7 +147,10 @@ constexpr int kDeltaThreads = 256;
 template <int BF16, int D>
 struct DeltaCfg {
   static constexpr int kElems = BF16 ? 8 : 4;       // per 16-byte load
-  static constexpr int kLanes = D / kElems;         // threads per row
+  // threads per row (at most a warp: the sum is a warp shuffle) and the
+  // 16-byte loads of each (2 at D = 256 in f32)
+  static constexpr int kLanes = D / kElems < 32 ? D / kElems : 32;
+  static constexpr int kLoads = D / kElems / kLanes;
 };
 
 // the dot product of two 16-byte vectors of f32 (4) or bf16 (8) values
@@ -163,6 +193,12 @@ __global__ void __launch_bounds__(kDeltaThreads) fa_bwd_delta_kernel(
                  h * a.dos.h + i * a.dos.s + part * C::kElems;
     acc = dot16<BF16>(__ldg(reinterpret_cast<const uint4*>(d)),
                       __ldg(reinterpret_cast<const uint4*>(o)));
+#pragma unroll
+    for (int l = 1; l < C::kLoads; ++l) {
+      const int off = l * C::kLanes * C::kElems;
+      acc += dot16<BF16>(__ldg(reinterpret_cast<const uint4*>(d + off)),
+                         __ldg(reinterpret_cast<const uint4*>(o + off)));
+    }
   }
 #pragma unroll
   for (int off = C::kLanes / 2; off > 0; off >>= 1)
@@ -174,18 +210,23 @@ __global__ void __launch_bounds__(kDeltaThreads) fa_bwd_delta_kernel(
 // 2-3. f32: dK/dV per key tile and dQ per query tile on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;       // query rows and keys of a tile
+// Query rows and keys of a tile: 64, and 32 at D = 256, where four 64-row
+// tiles of D + 1 floats alone would take 263,168 B of shared memory (the
+// 32-row instance takes 136,064 B).  Each thread of the 16 x 16 grid holds
+// f32_tile(D) / 16 rows of a tile.
+__host__ __device__ constexpr int f32_tile(int D) {
+  return D == 256 ? 32 : 64;
+}
 constexpr int kThreads = 256;   // 16 x 16
-constexpr int kRows = kTile / 16;
-constexpr int kPP = kTile + 1;  // padded row of a 64 x 64 fp32 tile
 
-// Stage rows [r0, r0 + kTile) of one head of a (B, heads, S, D) tensor into
-// shared memory as fp32 rows of D + 1 floats; rows at or past S read 0.
+// Stage rows [r0, r0 + f32_tile(D)) of one head of a (B, heads, S, D)
+// tensor into shared memory as fp32 rows of D + 1 floats; rows at or past
+// S read 0.
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           long long stride_s, int r0,
                                           int S) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+  for (int i = threadIdx.x; i < f32_tile(D) * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int row = r0 + r;
     dst[r * (D + 1) + d] = row < S ? base[row * stride_s + d] : 0.f;
@@ -208,15 +249,20 @@ __device__ __forceinline__ int2 query_range(const Args& a, int k0, int n,
                    a.window ? min(a.Sq, k_last + a.window) : a.Sq);
 }
 
-// Shared memory (floats) of both: four tiles of kTile x (D + 1) (K, V and
-// Q, dO), one kTile x (kTile + 1) tile of P or dS, and the tile's lse and
-// delta.
+// Shared memory (floats) of both: four tiles of T x (D + 1) (K, V and Q,
+// dO), one T x (T + 1) tile of P or dS, and the tile's lse and delta, T =
+// f32_tile(D).
 __host__ __device__ constexpr int f32_smem(int D) {
-  return (int)sizeof(float) * (4 * kTile * (D + 1) + kTile * kPP + 2 * kTile);
+  return (int)sizeof(float) * (4 * f32_tile(D) * (D + 1) +
+                               f32_tile(D) * (f32_tile(D) + 1) +
+                               2 * f32_tile(D));
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_f32_kernel(Args a) {
+  constexpr int kTile = f32_tile(D);
+  constexpr int kRows = kTile / 16;   // rows (and columns) a thread holds
+  constexpr int kPP = kTile + 1;      // padded row of the P / dS tile
   constexpr int DP = D + 1;
   constexpr int DC = D / 16;    // accumulator columns per thread
   const int k0 = blockIdx.x * kTile;
@@ -268,28 +314,28 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_f32_kernel(Args a) {
       __syncthreads();
 
       // S^T and dP^T for keys ty + 16 i, queries tx + 16 j
-      float s[kRows][4], dp[kRows][4];
+      float s[kRows][kRows], dp[kRows][kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < kRows; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float kv[kRows], vv[kRows], qv[4], dov[4];
+        float kv[kRows], vv[kRows], qv[kRows], dov[kRows];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
           kv[i] = k_s[(ty + 16 * i) * DP + d];
           vv[i] = v_s[(ty + 16 * i) * DP + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kRows; ++j) {
           qv[j] = q_s[(tx + 16 * j) * DP + d];
           dov[j] = do_s[(tx + 16 * j) * DP + d];
         }
 #pragma unroll
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < kRows; ++j) {
             s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
             dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
           }
@@ -297,7 +343,7 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_f32_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kRows; ++j) {
           const int qr = tx + 16 * j;
           s[i][j] = visible(a, q0 + qr, k0 + ty + 16 * i)
                         ? exp2f(fmaf(s[i][j], sl2, -lse_s[qr]))
@@ -321,7 +367,7 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_f32_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kRows; ++j) {
           const int qr = tx + 16 * j;
           p_s[(ty + 16 * i) * kPP + qr] = s[i][j] * (dp[i][j] - delta_s[qr]);
         }
@@ -360,6 +406,9 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_f32_kernel(Args a) {
 // spilled.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_f32_kernel(Args a) {
+  constexpr int kTile = f32_tile(D);
+  constexpr int kRows = kTile / 16;
+  constexpr int kPP = kTile + 1;
   constexpr int DP = D + 1;
   constexpr int DC = D / 16;
   const int q0 = blockIdx.x * kTile;
@@ -409,28 +458,28 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_f32_kernel(Args a) {
     __syncthreads();
 
     // S and dP for queries ty + 16 i, keys tx + 16 j
-    float s[kRows][4], dp[kRows][4];
+    float s[kRows][kRows], dp[kRows][kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < kRows; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[kRows], ov[kRows], kv[4], vv[4];
+      float qv[kRows], ov[kRows], kv[kRows], vv[kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         qv[i] = q_s[(ty + 16 * i) * DP + d];
         ov[i] = do_s[(ty + 16 * i) * DP + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kRows; ++j) {
         kv[j] = k_s[(tx + 16 * j) * DP + d];
         vv[j] = v_s[(tx + 16 * j) * DP + d];
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kRows; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
@@ -439,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_f32_kernel(Args a) {
     for (int i = 0; i < kRows; ++i) {
       const int qr = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kRows; ++j) {
         const int kc = tx + 16 * j;
         const float p = visible(a, q0 + qr, k0 + kc)
                             ? exp2f(fmaf(s[i][j], sl2, -lse_s[qr]))
@@ -490,14 +539,20 @@ namespace tc {
 constexpr int kConsumers = 2;                  // warpgroups of 64 rows
 constexpr int kConsumerWarps = 4 * kConsumers;
 constexpr int kThreads = 128 * kConsumers;
-constexpr int kStages = 3;
+// named barriers (0 is __syncthreads) of the split dK/dV kernel: P^T
+// written by group 0, and read by group 1
+constexpr int kBarPFull = 1, kBarPEmpty = 2;
 
-// dK/dV: kBN keys a CTA (64 a consumer), kBM queries a ring stage
+// dK/dV: kBN keys a CTA (64 a consumer), kBM queries a ring stage.  At
+// D = 256 (kSplit) a CTA owns 64 keys, and its groups split the work:
+// group 0 holds dV, group 1 dK (see dkdv_split_consume).
 template <int D>
 struct DkdvCfg {
   using R = Rows<D>;
-  static constexpr int kBN = 64 * kConsumers;
+  static constexpr bool kSplit = D == 256;
+  static constexpr int kBN = kSplit ? 64 : 64 * kConsumers;
   static constexpr int kBM = D == 128 ? 32 : 64;
+  static constexpr int kStages = kSplit ? 2 : 3;
   static constexpr int kPartKV = kBN * R::kRowBytes;
   static constexpr int kPartQ = kBM * R::kRowBytes;
   static constexpr int kKVBytes = kBN * D * 2;     // K or V
@@ -506,17 +561,22 @@ struct DkdvCfg {
                                 1024;              // Q, dO, lse, delta
   static constexpr int kV = kKVBytes;              // offsets from the base
   static constexpr int kRing = 2 * kKVBytes;
-  static constexpr int kBar = kRing + kStages * kStage;
+  // kSplit: P^T of a 64-key x kBM tile in fp32, passed from group 0 to 1
+  static constexpr int kP = kRing + kStages * kStage;
+  static constexpr int kBar = kP + (kSplit ? 64 * kBM * 4 : 0);
   // barriers: kv_full, full[stages], empty[stages]
   static constexpr int kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;  // + align
 };
 
-// dQ: kBM query rows a CTA (64 a consumer), kBN keys a ring stage
+// dQ: kBM query rows a CTA (64 a consumer), kBN keys a ring stage (32 at
+// D = 256: three stages of 64-key K and V tiles beside the 128-row Q and
+// dO would need 320 KiB)
 template <int D>
 struct DqCfg {
   using R = Rows<D>;
   static constexpr int kBM = 64 * kConsumers;
-  static constexpr int kBN = 64;
+  static constexpr int kBN = D == 256 ? 32 : 64;
+  static constexpr int kStages = 3;
   static constexpr int kPartQ = kBM * R::kRowBytes;
   static constexpr int kPartKV = kBN * R::kRowBytes;
   static constexpr int kQBytes = kBM * D * 2;      // Q or dO
@@ -554,13 +614,13 @@ __device__ __forceinline__ void dkdv_fill(const Maps& maps, const Args& a,
                                           int kh, int q_lo, int n_q) {
   using C = DkdvCfg<D>;
   using R = Rows<D>;
-  const uint32_t full = base + C::kBar + 8, empty = full + 8 * kStages;
-  const int st = j % kStages;
+  const uint32_t full = base + C::kBar + 8, empty = full + 8 * C::kStages;
+  const int st = j % C::kStages;
   const int lane = threadIdx.x % 32;
   const int h = kh * (a.H / a.KH) + j / n_q;
   const int q0 = q_lo + (j % n_q) * C::kBM;
   const uint32_t qa = base + C::kRing + st * C::kStage;
-  mbar_wait(empty + 8 * st, ((j / kStages) & 1) ^ 1);  // first round passes
+  mbar_wait(empty + 8 * st, ((j / C::kStages) & 1) ^ 1);  // first round passes
   if (lane == 0) {
     mbar_expect_tx(full + 8 * st, 2 * C::kTileBytes);
     for (int p = 0; p < R::kParts; ++p) {
@@ -582,6 +642,35 @@ __device__ __forceinline__ void dkdv_fill(const Maps& maps, const Args& a,
   __syncwarp();
 }
 
+// The dK/dV CTA's K and V tiles (keys from k0) and its ring's first
+// kStages steps, issued by warp 0 of the first group (``filler``); every
+// thread then waits for K and V.
+template <int D>
+__device__ __forceinline__ void dkdv_start(const Maps& maps, const Args& a,
+                                           uint32_t base, bool filler, int b,
+                                           int kh, int k0, int q_lo, int n_q,
+                                           int steps) {
+  using C = DkdvCfg<D>;
+  using R = Rows<D>;
+  const uint32_t kv_full = base + C::kBar;
+  if (steps == 0) return;
+  if (filler) {
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(kv_full, 2 * C::kKVBytes);
+      for (int p = 0; p < R::kParts; ++p) {
+        tma_load(base + p * C::kPartKV, &maps.k, p * R::kCols, k0, kh, b,
+                 kv_full);
+        tma_load(base + C::kV + p * C::kPartKV, &maps.v, p * R::kCols, k0, kh,
+                 b, kv_full);
+      }
+    }
+    __syncwarp();
+    for (int j = 0; j < C::kStages && j < steps; ++j)
+      dkdv_fill<D>(maps, a, base, j, b, kh, q_lo, n_q);
+  }
+  mbar_wait(kv_full, 0);
+}
+
 template <int D>
 __device__ __forceinline__ void dkdv_consume(const Maps& maps, const Args& a,
                                              uint32_t base, int g, int b,
@@ -591,7 +680,7 @@ __device__ __forceinline__ void dkdv_consume(const Maps& maps, const Args& a,
   using R = Rows<D>;
   constexpr int BM = C::kBM;
   const uint32_t kv_full = base + C::kBar, full = kv_full + 8,
-                 empty = full + 8 * kStages;
+                 empty = full + 8 * C::kStages;
   const int lane = threadIdx.x % 32;
   const int w = (threadIdx.x / 32) % 4;
   const int kg0 = k0 + 64 * g;               // this group's keys
@@ -608,27 +697,13 @@ __device__ __forceinline__ void dkdv_consume(const Maps& maps, const Args& a,
 
   const int steps = G * n_q;
   const bool filler = threadIdx.x < 32;      // warp 0 of group 0
-  if (filler && steps > 0) {
-    if (lane == 0) {
-      mbar_expect_tx(kv_full, 2 * C::kKVBytes);
-      for (int p = 0; p < R::kParts; ++p) {
-        tma_load(base + p * C::kPartKV, &maps.k, p * R::kCols, k0, kh, b,
-                 kv_full);
-        tma_load(base + C::kV + p * C::kPartKV, &maps.v, p * R::kCols, k0, kh,
-                 b, kv_full);
-      }
-    }
-    __syncwarp();
-    for (int j = 0; j < kStages && j < steps; ++j)
-      dkdv_fill<D>(maps, a, base, j, b, kh, q_lo, n_q);
-  }
-  if (steps > 0) mbar_wait(kv_full, 0);
+  dkdv_start<D>(maps, a, base, filler, b, kh, k0, q_lo, n_q, steps);
   for (int i = 0; i < steps; ++i) {
     // refill the stage step i - 1 released (both groups are past it soon)
-    if (filler && i >= 1 && i - 1 + kStages < steps)
-      dkdv_fill<D>(maps, a, base, i - 1 + kStages, b, kh, q_lo, n_q);
-    const int st = i % kStages;
-    const uint32_t ph = (i / kStages) & 1;
+    if (filler && i >= 1 && i - 1 + C::kStages < steps)
+      dkdv_fill<D>(maps, a, base, i - 1 + C::kStages, b, kh, q_lo, n_q);
+    const int st = i % C::kStages;
+    const uint32_t ph = (i / C::kStages) & 1;
     const int q0 = q_lo + (i % n_q) * BM;
     const uint32_t qa = base + C::kRing + st * C::kStage;
     const uint32_t doa = qa + C::kTileBytes;
@@ -742,6 +817,167 @@ __device__ __forceinline__ void dkdv_consume(const Maps& maps, const Args& a,
   }
 }
 
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+// D = 256: the CTA's 64 keys [k0, k0 + 64) are both groups' rows, and the
+// groups split the work of each ring step: group 0 computes S^T = K Q^T,
+// P^T and dV += P^T_hi dO + P^T_lo dO; group 1 dP^T = V dO^T and, from
+// group 0's P^T, dS^T = P^T (dP^T - delta) and dK += dS^T_hi Q + dS^T_lo Q.
+// Each group's accumulator (dV or dK, 64 x 256) is 128 fp32 registers a
+// thread, where one group holding both would need 256.  P^T passes in fp32
+// through shared memory (each thread's 32 values at [e][thread]; both
+// groups hold a 64 x 64 tile in the same thread layout), guarded by two
+// named barriers: group 0 waits on kBarPEmpty before it overwrites the
+// tile, group 1 on kBarPFull before it reads it.  The arithmetic of every
+// element is the other instances'.
+template <int D>
+__device__ __forceinline__ void dkdv_split_consume(
+    const Maps& maps, const Args& a, uint32_t base, int g, int b, int kh,
+    int k0, int q_lo, int n_q) {
+  using C = DkdvCfg<D>;
+  constexpr int BM = C::kBM;
+  const uint32_t kv_full = base + C::kBar, full = kv_full + 8,
+                 empty = full + 8 * C::kStages;
+  const int lane = threadIdx.x % 32;
+  const int w = (threadIdx.x / 32) % 4;
+  const int t = threadIdx.x % 128;           // this thread in its group
+  const int r0 = k0 + 16 * w + lane / 4;     // this thread's keys r0, r0 + 8
+  const int c2 = 2 * (lane % 4);
+  const float sc = a.scale * kLog2e;
+  const int G = a.H / a.KH;
+  // group 0 multiplies K by Q^T, group 1 V by dO^T
+  const uint32_t lhs = base + (g == 0 ? 0 : C::kV);
+  float* p_s = reinterpret_cast<float*>(__cvta_shared_to_generic(base +
+                                                                  C::kP));
+
+  float acc[D / 2];                          // dV (group 0) or dK (group 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  const int steps = G * n_q;
+  const bool filler = threadIdx.x < 32;      // warp 0 of group 0
+  dkdv_start<D>(maps, a, base, filler, b, kh, k0, q_lo, n_q, steps);
+  bool passed = false;                       // a P^T tile went through p_s
+  for (int i = 0; i < steps; ++i) {
+    // refill the stage step i - 1 released (both groups are past it soon)
+    if (filler && i >= 1 && i - 1 + C::kStages < steps)
+      dkdv_fill<D>(maps, a, base, i - 1 + C::kStages, b, kh, q_lo, n_q);
+    const int st = i % C::kStages;
+    const uint32_t ph = (i / C::kStages) & 1;
+    const int q0 = q_lo + (i % n_q) * BM;
+    const uint32_t qa = base + C::kRing + st * C::kStage;
+    const uint32_t doa = qa + C::kTileBytes;
+    const float* lse_s = reinterpret_cast<const float*>(
+        __cvta_shared_to_generic(doa + C::kTileBytes));
+    const float* delta_s = lse_s + BM;
+    mbar_wait(full + 8 * st, ph);
+    // every query of the tile masked for the CTA's keys: nothing to add
+    // (the same decision in both groups, so their barriers pair up)
+    const bool skip = (a.causal && q0 + BM - 1 < k0) ||
+                      (a.window && q0 - (k0 + 63) >= a.window);
+    if (!skip) {
+      // S^T = K Q^T (group 0) or dP^T = V dO^T (group 1), 64 x BM, fp32
+      const uint32_t rhs = g == 0 ? qa : doa;
+      float x[BM / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t ld = kmajor<D>(lhs, C::kPartKV, kk);
+        const uint64_t rd = kmajor<D>(rhs, C::kPartQ, kk);
+        if (kk == 0)
+          Mma<BM>::template ss<true>(x, ld, rd);
+        else
+          Mma<BM>::template ss<false>(x, ld, rd);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(x);
+      uint32_t hi[BM / 16][4], lo[BM / 16][4];
+      if (g == 0) {
+        // P^T = exp2(S^T sc - lse), fp32; masks only on tiles that cross
+        // Sq, Sk, the diagonal or the window's edge
+        const bool whole = q0 + BM <= a.Sq && k0 + 64 <= a.Sk &&
+                           (!a.causal || k0 + 63 <= q0) &&
+                           (!a.window || q0 + BM - 1 - k0 < a.window);
+#pragma unroll
+        for (int e = 0; e < BM / 2; ++e) {
+          const int qc = 8 * (e / 4) + c2 + (e & 1);
+          float p = ex2(fmaf(x[e], sc, -lse_s[qc]));
+          if (!whole) {
+            const int key = r0 + ((e & 2) ? 8 : 0);
+            if (!visible(a, q0 + qc, key)) p = 0.f;
+          }
+          x[e] = p;
+        }
+        if (passed) named_sync(kBarPEmpty);  // group 1 read the last P^T
+#pragma unroll
+        for (int e = 0; e < BM / 2; ++e) p_s[e * 128 + t] = x[e];
+        named_arrive(kBarPFull);
+        split_frags(x, hi, lo);
+        // dV += P^T_hi dO + P^T_lo dO (64 x D)
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < BM / 16; ++u) {
+          const uint64_t dd = mnmajor<D>(doa, C::kPartQ, u);
+          Mma<D>::rs(acc, hi[u], dd);
+          Mma<D>::rs(acc, lo[u], dd);
+        }
+      } else {
+        // dS^T = P^T (dP^T - delta); dK += dS^T_hi Q + dS^T_lo Q (64 x D)
+        named_sync(kBarPFull);
+#pragma unroll
+        for (int e = 0; e < BM / 2; ++e)
+          x[e] = p_s[e * 128 + t] *
+                 (x[e] - delta_s[8 * (e / 4) + c2 + (e & 1)]);
+        named_arrive(kBarPEmpty);
+        split_frags(x, hi, lo);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < BM / 16; ++u) {
+          const uint64_t qd = mnmajor<D>(qa, C::kPartQ, u);
+          Mma<D>::rs(acc, hi[u], qd);
+          Mma<D>::rs(acc, lo[u], qd);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+      keep_frags(hi);
+      keep_frags(lo);
+      passed = true;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+  // group 1's last arrival on kBarPEmpty: every arrival is waited for
+  if (g == 0 && passed) named_sync(kBarPEmpty);
+
+  // epilogue: dV as summed, dK times 1/sqrt(D) in fp32; one bf16 rounding
+  const bool is_dk = g == 1;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(is_dk ? a.dk : a.dv) +
+                       b * (is_dk ? a.dks.b : a.dvs.b) +
+                       kh * (is_dk ? a.dks.h : a.dvs.h);
+  const long long os = is_dk ? a.dks.s : a.dvs.s;
+  const float mul = is_dk ? a.scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r0 + 8 * r;
+    if (key >= a.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + key * os + 8 * j + c2) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul,
+                                acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_tc_kernel(
     const __grid_constant__ Maps maps, const Args a) {
@@ -749,7 +985,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_tc_kernel(
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = aligned_base(smem_raw);
   const uint32_t kv_full = base + C::kBar, full = kv_full + 8,
-                 empty = full + 8 * kStages;
+                 empty = full + 8 * C::kStages;
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
   const int k0 = blockIdx.z * C::kBN;     // causal: the most work first
@@ -758,14 +994,18 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_tc_kernel(
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < C::kStages; ++st) {
       mbar_init(full + 8 * st, 1 + 32);      // TMA bytes + warp 0's stores
       mbar_init(empty + 8 * st, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  dkdv_consume<D>(maps, a, base, threadIdx.x / 128, b, kh, k0, qr.x, n_q);
+  if constexpr (C::kSplit)
+    dkdv_split_consume<D>(maps, a, base, threadIdx.x / 128, b, kh, k0, qr.x,
+                          n_q);
+  else
+    dkdv_consume<D>(maps, a, base, threadIdx.x / 128, b, kh, k0, qr.x, n_q);
 }
 
 // Ring step j (the K and V tiles from key k_lo + j * kBN) of the dQ CTA
@@ -775,11 +1015,11 @@ __device__ __forceinline__ void dq_fill(const Maps& maps, uint32_t base,
                                         int j, int b, int kh, int k_lo) {
   using C = DqCfg<D>;
   using R = Rows<D>;
-  const uint32_t full = base + C::kBar + 8, empty = full + 8 * kStages;
-  const int st = j % kStages;
+  const uint32_t full = base + C::kBar + 8, empty = full + 8 * C::kStages;
+  const int st = j % C::kStages;
   const int k0 = k_lo + j * C::kBN;
   const uint32_t ka = base + C::kRing + st * C::kStage;
-  mbar_wait(empty + 8 * st, ((j / kStages) & 1) ^ 1);  // first round passes
+  mbar_wait(empty + 8 * st, ((j / C::kStages) & 1) ^ 1);  // first round passes
   mbar_expect_tx(full + 8 * st, C::kStage);
   for (int p = 0; p < R::kParts; ++p) {
     tma_load(ka + p * C::kPartKV, &maps.k, p * R::kCols, k0, kh, b,
@@ -798,7 +1038,7 @@ __device__ __forceinline__ void dq_consume(const Maps& maps, const Args& a,
   using R = Rows<D>;
   constexpr int BN = C::kBN;
   const uint32_t q_full = base + C::kBar, full = q_full + 8,
-                 empty = full + 8 * kStages;
+                 empty = full + 8 * C::kStages;
   const int lane = threadIdx.x % 32;
   const int w = (threadIdx.x / 32) % 4;
   const int qg0 = q0 + 64 * g;               // this group's rows
@@ -829,18 +1069,18 @@ __device__ __forceinline__ void dq_consume(const Maps& maps, const Args& a,
       tma_load(base + C::kDO + p * C::kPartQ, &maps.dout, p * R::kCols, q0, h,
                b, q_full);
     }
-    for (int j = 0; j < kStages && j < n_k; ++j)
+    for (int j = 0; j < C::kStages && j < n_k; ++j)
       dq_fill<D>(maps, base, j, b, kh, k_lo);
   }
   __syncwarp();
   if (n_k > 0) mbar_wait(q_full, 0);
   for (int i = 0; i < n_k; ++i) {
     // refill the stage step i - 1 released (both groups are past it soon)
-    if (filler && i >= 1 && i - 1 + kStages < n_k)
-      dq_fill<D>(maps, base, i - 1 + kStages, b, kh, k_lo);
+    if (filler && i >= 1 && i - 1 + C::kStages < n_k)
+      dq_fill<D>(maps, base, i - 1 + C::kStages, b, kh, k_lo);
     __syncwarp();
-    const int st = i % kStages;
-    const uint32_t ph = (i / kStages) & 1;
+    const int st = i % C::kStages;
+    const uint32_t ph = (i / C::kStages) & 1;
     const int k0 = k_lo + i * BN;
     const uint32_t ka = base + C::kRing + st * C::kStage;
     const uint32_t va = ka + C::kKVBytes;
@@ -933,7 +1173,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_tc_kernel(
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = aligned_base(smem_raw);
   const uint32_t q_full = base + C::kBar, full = q_full + 8,
-                 empty = full + 8 * kStages;
+                 empty = full + 8 * C::kStages;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * C::kBM;  // longest first
@@ -942,7 +1182,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_tc_kernel(
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < C::kStages; ++st) {
       mbar_init(full + 8 * st, 1);
       mbar_init(empty + 8 * st, kConsumerWarps);
     }
@@ -982,8 +1222,9 @@ cudaError_t launch_delta(const Args& a, int B, cudaStream_t stream) {
 
 template <int D>
 int launch_f32(const Args& a, int B, cudaStream_t stream) {
-  const int nq = (a.Sq + kTile - 1) / kTile;
-  const int nk = (a.Sk + kTile - 1) / kTile;
+  constexpr int T = f32_tile(D);
+  const int nq = (a.Sq + T - 1) / T;
+  const int nk = (a.Sk + T - 1) / T;
   cudaError_t e = launch_delta<0, D>(a, B, stream);
   if (e != cudaSuccess) return (int)e;
   e = launch_one(fa_bwd_dkdv_f32_kernel<D>, dim3(nk, a.KH, B), kThreads,
@@ -1033,7 +1274,7 @@ extern "C" {
 // read by TMA, o in 16-byte loads, the gradients written in bf16 pairs, so
 // every base is 16-byte aligned and every stride a multiple of 16 bytes;
 // the wrapper checks), else f32 (the CUDA-core kernels; o and dout
-// 16-byte aligned).  D is 16, 64 or 128.  ``strides`` holds 24 element
+// 16-byte aligned).  D is 16, 64, 128 or 256.  ``strides`` holds 24 element
 // strides, (b, h, s) of q, k, v, o, dout, dq, dk and dv in that order (d
 // is contiguous).  lse is the forward's fp32 (B,H,Sq) output and delta
 // fp32 (B,H,Sq) scratch, both contiguous.  Every pointer but ``strides``
@@ -1065,6 +1306,8 @@ int flash_attention_bwd_launch(int bf16, int D, const void* q, const void* k,
     case 129: return launch_tc<64>(a, B, s);
     case 256: return launch_f32<128>(a, B, s);
     case 257: return launch_tc<128>(a, B, s);
+    case 512: return launch_f32<256>(a, B, s);
+    case 513: return launch_tc<256>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1073,16 +1316,20 @@ int flash_attention_bwd_launch(int bf16, int D, const void* q, const void* k,
 // 2 (dQ, f32), 3 (dK/dV, tensor cores) or 4 (dQ, tensor cores) at head dim
 // D, in bytes; 0 for a D without an instance.
 int flash_attention_bwd_smem(int kernel, int D) {
-  if (D != 16 && D != 64 && D != 128) return 0;
+  if (D != 16 && D != 64 && D != 128 && D != 256) return 0;
   switch (kernel) {
     case 1:
     case 2: return f32_smem(D);
     case 3:
-      return D == 16 ? tc::DkdvCfg<16>::kSmem
-             : D == 64 ? tc::DkdvCfg<64>::kSmem : tc::DkdvCfg<128>::kSmem;
+      return D == 16    ? tc::DkdvCfg<16>::kSmem
+             : D == 64  ? tc::DkdvCfg<64>::kSmem
+             : D == 128 ? tc::DkdvCfg<128>::kSmem
+                        : tc::DkdvCfg<256>::kSmem;
     case 4:
-      return D == 16 ? tc::DqCfg<16>::kSmem
-             : D == 64 ? tc::DqCfg<64>::kSmem : tc::DqCfg<128>::kSmem;
+      return D == 16    ? tc::DqCfg<16>::kSmem
+             : D == 64  ? tc::DqCfg<64>::kSmem
+             : D == 128 ? tc::DqCfg<128>::kSmem
+                        : tc::DqCfg<256>::kSmem;
     default: return 0;
   }
 }

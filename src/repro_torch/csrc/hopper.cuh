@@ -364,11 +364,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the 4-d map (d, s, head, batch) of a bf16 tensor, boxes of cols x rows
+// the 4-d map (d, s, head, batch) of a bf16 tensor, boxes of cols x rows.
+// The driver call needs a current context, which a host thread that has
+// made no runtime call yet lacks (autograd's device thread, when K2's
+// backward is its first CUDA work: CUDA_ERROR_INVALID_CONTEXT), so the
+// current device's primary context is made current first (cudaSetDevice).
 bool make_map(CUtensorMap* map, const void* ptr, int D, int cols, int S,
               int heads, int B, Strides st, int rows) {
   EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
+  int dev;
+  if (encode == nullptr || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaSetDevice(dev) != cudaSuccess)
+    return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,

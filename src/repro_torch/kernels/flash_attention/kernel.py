@@ -30,12 +30,15 @@ gradient of the same function with respect to q, k and v, from that
 ``lse``: three kernels of ``repro_torch/csrc/flash_attention_bwd.cu``
 (rowsum(dO * O); dK and dV per key tile; dQ per query tile), bf16 on the
 tensor cores (``wgmma`` fed by TMA, P and dS split into bf16 hi and lo
-parts), f32 on the CUDA cores.  Its plain version is
+parts; at D = 256 the dK/dV kernel's two warpgroups hold dV and dK
+apart, each CTA one 64-key tile, and the dQ kernel's ring 32-key tiles),
+f32 on the CUDA cores (32-row tiles at D = 256).  D is one of
+``BWD_HEAD_DIMS``, the forward's ``HEAD_DIMS``.  Its plain version is
 ``ref.flash_attention_bwd_ref``, taken only when every tensor lies on the
 CPU (where a missing ``lse`` is recomputed); on CUDA tensors ``lse`` is
-required, and D must be one of ``BWD_HEAD_DIMS`` (16, 64, 128: D = 256
-raises ``ValueError``).  ``bwd_launches`` counts each of its kernels'
-launches (``BWD_KERNELS`` a call).
+required.  ``bwd_launches`` counts each of its kernels' launches
+(``BWD_KERNELS`` a call), ``bwd_window_launches`` those with a sliding
+window.
 """
 from __future__ import annotations
 
@@ -56,14 +59,15 @@ from .ref import (attention_lse_ref, flash_attention_bwd_ref,
 launches = 0
 tc_launches = 0
 window_launches = 0
-# kernel launches made by ``flash_attention_bwd``: BWD_KERNELS a call
+# kernel launches made by ``flash_attention_bwd``: BWD_KERNELS a call, and
+# those with a sliding window
 bwd_launches = 0
+bwd_window_launches = 0
 BWD_KERNELS = 3
 
 HEAD_DIMS = (16, 64, 128, 256)   # template instances in the source
-# the backward's instances (flash_attention_bwd.cu); D = 256 (gemma3's
-# training) is ROADMAP queue 2 item 1's backward
-BWD_HEAD_DIMS = (16, 64, 128)
+# the backward's instances (flash_attention_bwd.cu): the forward's
+BWD_HEAD_DIMS = HEAD_DIMS
 _SRC = CSRC / "flash_attention.cu"
 _ENTRY = {torch.float32: "flash_attention_f32_launch",
           torch.bfloat16: "flash_attention_tc_launch"}
@@ -296,11 +300,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     when given.  CPU tensors run the plain version, which recomputes a
     missing ``lse``; CUDA tensors need ``lse`` (``ValueError`` without
     it: nothing recomputes it there) and launch the three kernels on the
-    current stream or raise.  bf16 tensors are read by TMA and the
-    gradients written in bf16 pairs, and o and do (either dtype) in
-    16-byte loads: those bases 16-byte aligned and strides a multiple of
-    16 bytes, else ``ValueError``."""
-    global bwd_launches
+    current stream or raise; D is one of ``BWD_HEAD_DIMS`` (16, 64, 128,
+    256).  bf16 tensors are read by TMA and the gradients written in bf16
+    pairs, and o and do (either dtype) in 16-byte loads: those bases
+    16-byte aligned and strides a multiple of 16 bytes, else
+    ``ValueError``."""
+    global bwd_launches, bwd_window_launches
     given = (q, k, v, o, do) + tuple(out or ()) + (
         () if lse is None else (lse,))
     if all(t.device.type == "cpu" for t in given):
@@ -321,10 +326,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     for t in (q, k, v))
     dq, dk, dv = out
     _check(q, k, v, o, window)
-    if q.shape[3] not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd has no kernel at head_dim "
-                         f"{q.shape[3]} (instances {BWD_HEAD_DIMS}); D = 256 "
-                         "is ROADMAP queue 2 item 1's backward")
     for t, like in ((do, q), (dq, q), (dk, k), (dv, v)):
         if t.shape != like.shape or t.dtype != q.dtype:
             raise ValueError(f"a gradient tensor {tuple(t.shape)} "
@@ -374,4 +375,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"error {rc} ({msg})")
     bwd_launches += BWD_KERNELS
+    bwd_window_launches += BWD_KERNELS * (window > 0)
     return out

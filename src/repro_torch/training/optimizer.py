@@ -51,11 +51,17 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
+def clip_factor(tree, max_norm: float):
+    """(the factor that scales ``tree`` to a global norm of at most
+    ``max_norm``; the norm before clipping)."""
+    norm = global_norm(tree)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
 def clip_by_global_norm(tree, max_norm: float):
     """(tree scaled to a global norm of at most ``max_norm``, in fp32;
     the norm before clipping)."""
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale, norm = clip_factor(tree, max_norm)
     return map_tree(lambda g: g.float() * scale, tree), norm
 
 
@@ -78,20 +84,25 @@ def adamw_init(cfg: OptimizerConfig, params):
 
 
 def adamw_update(cfg: OptimizerConfig, grads, state, params):
+    """The reference's update, leaf by leaf: each gradient is clipped (in
+    fp32, by the global norm's factor) where its leaf is updated, and the
+    bias-corrected moments live only inside the step's expression, so the
+    fp32 temporaries at any time are one leaf's, with the same numbers (no
+    fp32 copy of the whole gradient tree beside the moments: 9.4 GB at
+    gemma3-12b's one super-block on the card)."""
     step = state["step"] + 1
     lr = lr_at(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    scale, gnorm = clip_factor(grads, cfg.clip_norm)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
     bc1, bc2 = 1 - b1 ** stepf, 1 - b2 ** stepf
 
     def upd(g, m, v, p):
-        gf = g.float()
+        gf = g.float() * scale
         m_new = b1 * m.float() + (1 - b1) * gf
         v_new = b2 * v.float() + (1 - b2) * gf * gf
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
+        del gf
+        delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps) \
             + cfg.weight_decay * p.float()
         p_new = p.float() - lr * delta
         return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)

@@ -7,11 +7,11 @@ The reference has no backward kernel: it differentiates the jnp
 what ``chip_smoke.py`` holds the CUDA kernels against on the card) is held
 against ``jax.vjp`` of the reference's ``chunked_attention``, and against
 torch autograd of the port's plain forward, in f32: causal, windowed and
-bidirectional masks, G 1, 2 and 4, Sq != Sk both ways, and rows that see
-no key.  Those rows are 0 in the port and a uniform average in the jnp
-oracle, so against JAX their incoming gradient is set to 0 (then both give
-them, and their keys, nothing).  Tolerance: atol = rtol = 1e-5, f32 sums
-in another order.
+bidirectional masks, G 1, 2 and 4, Sq != Sk both ways, rows that see no
+key, and head dims 16, 64 and 256 (gemma3's).  Rows that see no key are 0
+in the port and a uniform average in the jnp oracle, so against JAX their
+incoming gradient is set to 0 (then both give them, and their keys,
+nothing).  Tolerance: atol = rtol = 1e-5, f32 sums in another order.
 
 The repair test: ``flash_attention_bshd`` (every forward path of the
 model) passes gradients to q, k and v, equal to the plain backward's, and
@@ -45,10 +45,13 @@ SHAPES = [
     (1, 4, 2, 65, 17, 16, True, 8),          # rows with no key
     (1, 4, 2, 1, 1, 16, True, 0),            # one token
     (1, 6, 2, 33, 33, 64, True, 0),          # smollm's head dim
+    (1, 4, 2, 40, 40, 256, True, 16),        # gemma3's head dim, window
+    (1, 4, 2, 40, 17, 256, True, 8),         # D = 256, rows with no key
 ]
 # each axis once against JAX (every jit of the jnp oracle's vjp compiles
-# for ~2 s): G 1 and 4, bidirectional, window, Sq < Sk, Sq > Sk, no key
-JAX_SHAPES = [SHAPES[i] for i in (0, 2, 3, 4, 5, 6, 8)]
+# for ~2 s): G 1 and 4, bidirectional, window, Sq < Sk, Sq > Sk, no key,
+# D = 256 with a window
+JAX_SHAPES = [SHAPES[i] for i in (0, 2, 3, 4, 5, 6, 8, 11)]
 
 
 def _seen(shape) -> np.ndarray:

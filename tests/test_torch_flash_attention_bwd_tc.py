@@ -9,9 +9,11 @@ held to the bound ``chip_smoke.py`` holds them to, each element within
 lse, P = exp2(s * log2(e) / sqrt(D) - lse) in fp32, delta = rowsum(dO * o)
 in fp32; dK and dV over 128-key tiles, summed over the kv head's query
 heads and their query tiles (64 rows, 32 at D = 128) in the kernel's
-order; dQ over 128-row query tiles and 64-key tiles; P (in dV) and dS (in
-dK and dQ) split into bf16 hi and lo parts, two bf16 products into one
-fp32 accumulator; one bf16 rounding at the end.  The same model with P or
+order (64-key tiles at D = 256, where the CTA's two warpgroups hold dV
+and dK apart: the same sums); dQ over 128-row query tiles and 64-key
+tiles (32 at D = 256); P (in dV) and dS (in dK and dQ) split into bf16
+hi and lo parts, two bf16 products into one fp32 accumulator; one bf16
+rounding at the end.  The same model with P or
 dS rounded to bf16 once misses that bound, which is why the kernels split
 them.  Last, the plain forward's ``lse`` against ``jax.nn.logsumexp``, and
 the plain backward given it against the one that recomputes it and against
@@ -33,14 +35,23 @@ from repro_torch.kernels.flash_attention import (attention_lse_ref,
                                                  flash_attention_ref)
 
 LOG2E = 1.4426950408889634
-KEYS = 128                               # keys of a dK/dV CTA
 ROWS = 128                               # query rows of a dQ CTA
-DQ_KEYS = 64                             # keys of a dQ ring stage
+
+
+def dkdv_keys(D):
+    """Keys of a dK/dV CTA (DkdvCfg<D>::kBN in the source): 64 at D = 256,
+    where the CTA's two warpgroups split one tile's work."""
+    return 64 if D == 256 else 128
 
 
 def dkdv_rows(D):
     """Query rows of a dK/dV ring stage (DkdvCfg<D>::kBM in the source)."""
     return 32 if D == 128 else 64
+
+
+def dq_keys(D):
+    """Keys of a dQ ring stage (DqCfg<D>::kBN in the source)."""
+    return 32 if D == 256 else 64
 
 
 def _mask(i0, i1, j0, j1, causal, window, Sq, Sk):
@@ -81,9 +92,9 @@ def tc_bwd_model(q, k, v, o, do, lse, *, causal, window, split_p=True,
     dq = torch.zeros(B, H, Sq, D)
     dk = torch.zeros(B, KH, Sk, D)
     dv = torch.zeros(B, KH, Sk, D)
-    bm = dkdv_rows(D)
-    for k0 in range(0, Sk, KEYS):            # fa_bwd_dkdv_tc_kernel
-        k1 = min(k0 + KEYS, Sk)
+    bm, bn = dkdv_rows(D), dkdv_keys(D)
+    for k0 in range(0, Sk, bn):              # fa_bwd_dkdv_tc_kernel
+        k1 = min(k0 + bn, Sk)
         kt, vt = kf[:, :, k0:k1], vf[:, :, k0:k1]
         acc_k = torch.zeros(B, KH, k1 - k0, D)
         acc_v = torch.zeros(B, KH, k1 - k0, D)
@@ -107,8 +118,8 @@ def tc_bwd_model(q, k, v, o, do, lse, *, causal, window, split_p=True,
     for q0 in range(0, Sq, ROWS):            # fa_bwd_dq_tc_kernel
         q1 = min(q0 + ROWS, Sq)
         acc = torch.zeros(B, H, q1 - q0, D)
-        for k0 in range(0, Sk, DQ_KEYS):
-            k1 = min(k0 + DQ_KEYS, Sk)
+        for k0 in range(0, Sk, dq_keys(D)):
+            k1 = min(k0 + dq_keys(D), Sk)
             vis = _mask(q0, q1, k0, k1, causal, window, Sq, Sk)
             s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, q0:q1],
                              kr[:, :, k0:k1])
@@ -153,8 +164,10 @@ MASKS = {"causal": dict(causal=True, window=0),
          "window100": dict(causal=True, window=100),
          "bidirectional": dict(causal=False, window=0)}
 
-# S crosses the 128-key and 128-row tiles and the 32 / 64-row stages; KH = 2
+# S crosses the 128-key and 128-row tiles and the 32 / 64-row stages; KH = 2;
+# D = 256 (gemma3): 64-key dK/dV tiles and 32-key dQ stages, G 1 and 2
 CASES = [(G, S, D) for G in (1, 3) for D in (64, 128) for S in (129, 300)]
+CASES += [(G, S, 256) for G in (1, 2) for S in (129, 300)]
 
 
 @pytest.mark.parametrize("mask", MASKS)
@@ -173,6 +186,14 @@ def test_split_model_sq_ne_sk(Sq, Sk):
     assert max(_worst(got, want)) <= 1.0, _worst(got, want)
     if Sq > Sk + 99:
         assert not got[0][:, :, Sk + 99:].float().any()
+
+
+def test_split_model_d256_rows_that_see_no_key():
+    """D = 256 at gemma3's G = 2, Sq = 300 over Sk = 65 under a window of
+    100: within the bound, and the rows past Sk + 99 get exactly 0."""
+    got, want = _case(1, 4, 2, 300, 65, 256, MASKS["window100"], seed=5)
+    assert max(_worst(got, want)) <= 1.0, _worst(got, want)
+    assert not got[0][:, :, 65 + 99:].float().any()
 
 
 def test_rounding_p_or_ds_once_misses_the_bound():

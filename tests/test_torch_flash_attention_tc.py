@@ -15,6 +15,7 @@ is why the kernel splits P.  Last, the wrapper's check of what TMA needs
 for the layouts the model uses.
 """
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as k2
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd_ref,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_attention.kernel import tma_strides
 
@@ -251,18 +253,67 @@ def test_cuda_bf16_bwd_refuses_what_tma_cannot_read():
 
 
 @pytest.mark.cuda
-def test_cuda_bwd_refuses_head_dim_256():
-    """On the card: K2's forward runs at D = 256 (gemma3), its backward has
-    no D = 256 instance yet and raises ValueError naming ROADMAP queue 2
-    item 1, in bf16 and f32, launching nothing."""
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_cuda_bwd_head_dim_256_matches_plain(dt):
+    """On the card: K2's backward at D = 256 (gemma3's heads, G = 2; the
+    dK/dV kernel's split warpgroups and the dQ kernel's 32-key ring in
+    bf16, 32-row tiles in f32) against its plain version, causal, with a
+    window that cuts the 64-key tiles, bidirectional, and Sq > Sk + window
+    - 1 (rows that see no key get exactly 0): f32 within atol = rtol =
+    1e-4, bf16 each element within 2**-7 x |plain| + 2**-10 x max|plain|
+    + 1e-5 (chip_smoke.py's bounds); three launches a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    q, k, v = (t.cuda() for t in _inputs(1, 4, 2, 40, 256, seed=2))
-    before = k2.bwd_launches
-    for dt in (torch.bfloat16, torch.float32):
-        q, k, v = (t.to(dt) for t in (q, k, v))
-        lse = torch.empty(1, 4, 40, device="cuda")
+    dtype = getattr(torch, dt)
+    for (Sq, Sk), mask in (((300, 300), MASKS["causal"]),
+                           ((300, 300), MASKS["window100"]),
+                           ((129, 129), MASKS["bidirectional"]),
+                           ((300, 65), MASKS["window100"])):
+        q = _inputs(2, 16, 8, Sq, 256, seed=Sq)[0].cuda().to(dtype)
+        k, v = (t.cuda().to(dtype)
+                for t in _inputs(2, 16, 8, Sk, 256, seed=Sk + 1)[1:])
+        do = torch.randn(q.shape, device="cuda").to(dtype)
+        lse = torch.empty(q.shape[:3], device="cuda")
+        o = flash_attention(q, k, v, lse=lse, **mask)
+        before = k2.bwd_launches
+        got = k2.flash_attention_bwd(q, k, v, o, do, lse=lse, **mask)
+        want = flash_attention_bwd_ref(q, k, v, o, do, **mask)
+        torch.cuda.synchronize()
+        assert k2.bwd_launches == before + k2.BWD_KERNELS
+        for g, w in zip(got, want):
+            ref = w.float().abs()
+            if dtype == torch.float32:
+                limit = 1e-4 + 1e-4 * ref
+            else:
+                limit = 2.0 ** -7 * ref + 2.0 ** -10 * ref.max() + 1e-5
+            assert ((g.float() - w.float()).abs() <= limit).all()
+        if mask["window"] and Sq > Sk + mask["window"] - 1:
+            assert not got[0][:, :, Sk + mask["window"] - 1:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_maps_from_a_fresh_thread():
+    """The repair (ROADMAP queue 3): a host thread that has made no
+    CUDA runtime call has no current context, and the bf16 kernels' tensor
+    maps (cuTensorMapEncodeTiled) were refused there with error -1; the
+    backward of ``flash_attention_bshd`` first in autograd's device thread
+    is such a call.  The forward and the backward from a new thread now run
+    and equal the same calls from this one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q, k, v = (t.cuda() for t in _inputs(2, 4, 2, 129, 64, seed=3))
+    do = torch.randn(q.shape, device="cuda").bfloat16()
+
+    def calls():
+        lse = torch.empty(q.shape[:3], device="cuda")
         o = flash_attention(q, k, v, lse=lse)
-        with pytest.raises(ValueError, match="queue 2 item 1"):
-            k2.flash_attention_bwd(q, k, v, o, o, lse=lse)
-    assert k2.bwd_launches == before
+        return (o,) + tuple(k2.flash_attention_bwd(q, k, v, o, do, lse=lse))
+
+    res = {}
+    thread = threading.Thread(target=lambda: res.update(out=calls()))
+    thread.start()
+    thread.join(timeout=120)
+    assert "out" in res
+    torch.cuda.synchronize()
+    for a, b in zip(res["out"], calls()):
+        assert torch.equal(a, b)
