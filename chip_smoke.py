@@ -31,6 +31,10 @@ Phases (any failure raises and the script exits non-zero):
                 olmo H=KH=16; chameleon H=64/KH=8), f32 and bf16 pages,
                 across the ring's stages, at the decode shape B=4 and at
                 B=32, L=2048, each at the splits ``num_splits`` chooses
+                and at 3; gemma3's decode heads (phase 18: H=16/KH=8,
+                D=256, G=2), f32 and bf16, at phase 18's decode shape
+                (B=4, lengths 600, 1116, 1515 and 2116, NP=133) and at
+                B=32, L=2048, each at the splits ``num_splits`` chooses
                 and at 3; B=1 at L = 2047, 2048, 2049, 32767 and 32768;
                 B=32 at L=2048, and a B=32 batch mixing lengths 0, 1 and
                 2048 on int8 pages; shuffled block tables whose dead entries
@@ -97,7 +101,8 @@ Phases (any failure raises and the script exits non-zero):
   9. timings  — CUDA events around each call (the host's launch
                 included): K1 at the serving decode shape, at B=32, L=2048
                 on bf16 and on int8 pages and at B=1, L=32768, and at
-                starcoder2's heads (H=36, KH=4, D=128) at B=32, L=2048,
+                starcoder2's heads (H=36, KH=4, D=128) and gemma3's (H=16,
+                KH=8, D=256) at B=32, L=2048,
                 in turns with its plain version and
                 ``scaled_dot_product_attention`` on already gathered K/V
                 (a yardstick, not the same function), then both again as 20
@@ -284,11 +289,10 @@ Phases (any failure raises and the script exits non-zero):
                 16 new tokens each: K2 launches == 48 x 4 = 192, all on
                 the tensor cores, 160 of them windowed, K1 none, in each;
                 tokens/s, peak device memory and wall time printed.
-                ``serve.py --paged`` and ``--cluster`` without ``--dense``
-                raise item 7 (c2).  Then one super-block (6 layers) in f32
-                at full width, the dense cluster on cuda and on the CPU on
-                an 1100-token prompt, under phase 15's two gates.
-  17. gemma3-12b training — runs last.  Full width in bf16 at one
+                Then one super-block (6 layers) in f32 at full width, the
+                dense cluster on cuda and on the CPU on an 1100-token
+                prompt, under phase 15's two gates.
+  17. gemma3-12b training — runs after phase 16.  Full width in bf16 at one
                 super-block (6 of 48 layers, 2.35 B params: PERF.md
                 section 4 reckons the device memory that chose it) through
                 ``make_train_step`` on one 2 x 2048 batch from
@@ -305,8 +309,26 @@ Phases (any failure raises and the script exits non-zero):
                 makes; remat none and full over 3 steps, losses and
                 params bit-equal.  Then one super-block in f32 at full
                 width, the loss and every gradient on a 1 x 1100 batch on
-                cuda and on the CPU, under phase 15's two gates (the
-                largest gap over a leaf's largest value).
+                cuda and on the CPU, fan-in-scaled weights, within 1e-3
+                (the largest gap over a leaf's largest value).
+  18. gemma3-12b on the paged paths — runs last.  The whole model in bf16
+                (weights drawn once) through ``launch/serve.py --cluster
+                A100,L4 --stages 2`` (paged: every node a
+                ``PagedStageEngine``, the 8 global layers' K/V in each
+                node's pool, ring caches for the 40 local ones) and
+                ``serve.py --paged`` (``PagedEngine``), phase 16's prompts,
+                16 new tokens, max_len 2128.  Prefill is single-shot, then
+                the global layers' K/V is scattered into the pool: K2 ==
+                48 x 4 = 192 launches, all tensor-core, 160 windowed; K1
+                == decode passes x paged layers on the cluster, decode
+                steps x 8 in ``PagedEngine``; pools drained; tokens/s,
+                peak memory, wall time and the tokens agreeing with phase
+                16's dense cluster's (bf16: printed) printed.  Then one
+                super-block in f32 at full width on a forced plan {n0:
+                [0,3), a dense ``StageEngine`` (no global layer), n1:
+                [3,6), a ``PagedStageEngine``}, the paged cluster on cuda
+                and on the CPU on an 1100-token prompt, under phase 15's
+                two gates.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
@@ -357,6 +379,7 @@ from repro_torch.launch.worker import run_worker  # noqa: E402
 from repro_torch.models import init  # noqa: E402
 from repro_torch.models.common import map_tree, tree_leaves  # noqa: E402
 from repro_torch.models.model import loss_fn  # noqa: E402
+from repro_torch.models.paged import num_paged_layers  # noqa: E402
 from repro_torch.serving.autoscaler import Autoscaler  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
 from repro_torch.serving.frontend import Frontend  # noqa: E402
@@ -578,6 +601,20 @@ def kernel_checks():
                 tag = f"H{H}/KH{KH}/D{D} {str(dt)[6:]} {what}"
                 for splits in (None, 3):
                     res.append(check_case(tag, args, kw, tol, splits))
+    # gemma3's decode heads (phase 18: H=16, KH=8, D=256, G=2), f32 and
+    # bf16 at the splits num_splits chooses and at 3: phase 18's decode
+    # shape (B=4, lengths across its prompts of 600-2100 tokens and their
+    # 16 new tokens, 133-page tables: max_len 2128) and B=32 at L=2048
+    H, KH, D = family_heads(GEMMA3)
+    for dt, kv, tol in DTYPE_PAIRS[:2]:
+        for what, B, NP, lens in (
+                ("phase 18 decode B=4", 4, 133, [600, 1116, 1515, 2116]),
+                ("B=32 L=2048", 32, 128, [2048] * 31 + [1999])):
+            args, kw = make_inputs(B, H, KH, D, NP, lens, q_dtype=dt,
+                                   kv=kv, gen=gen, dead_ids=True)
+            tag = f"gemma3 H{H}/KH{KH}/D{D} {str(dt)[6:]} {what}"
+            for splits in (None, 3):
+                res.append(check_case(tag, args, kw, tol, splits))
     # one long sequence: split across the card by num_splits
     for L in (2047, 2048, 2049, 32767, 32768):
         args, kw = make_inputs(1, 15, 5, 64, -(-L // PAGE), [L],
@@ -707,12 +744,12 @@ def sdpa_yardstick(args, kw):
 def kernel_timings(pool_pages):
     """K1 (smollm heads: H=15, KH=5, D=64, bf16 q) at the serving decode
     shape, at B=32, L=2048 on bf16 and on int8 pages, and at B=1,
-    L=32768, and at starcoder2's heads (H=36, KH=4, D=128) at B=32,
-    L=2048: CUDA events around each call (the host's launch included),
-    in turns with its plain version and the SDPA yardstick, then the
-    kernel and the yardstick again as 20 calls replayed from one CUDA
-    graph (no host launch); achieved bytes/s and the share of the bound
-    of each."""
+    L=32768, and at starcoder2's heads (H=36, KH=4, D=128) and gemma3's
+    (H=16, KH=8, D=256) at B=32, L=2048: CUDA events around each call
+    (the host's launch included), in turns with its plain version and
+    the SDPA yardstick, then the kernel and the yardstick again as 20
+    calls replayed from one CUDA graph (no host launch); achieved bytes/s
+    and the share of the bound of each."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     out = {}
     # main path decode shape: 4 requests mid-decode (length 48 of the
@@ -725,7 +762,9 @@ def kernel_timings(pool_pages):
               "B32_L2048_int8": (32, [2048] * 32, 128, None, "int8", smollm),
               "B1_L32768": (1, [32768], 2048, None, "same", smollm),
               "starcoder2_B32_L2048": (32, [2048] * 32, 128, None, "same",
-                                       family_heads("starcoder2_7b"))}
+                                       family_heads("starcoder2_7b")),
+              "gemma3_B32_L2048": (32, [2048] * 32, 128, None, "same",
+                                   family_heads(GEMMA3))}
     for key, (B, lens, NP, P, kv, (H, KH, D)) in shapes.items():
         args, kw = make_inputs(B, H, KH, D, NP, lens, q_dtype=torch.bfloat16,
                                kv=kv, gen=gen, P=P)
@@ -1703,16 +1742,19 @@ def training_cross_check(cfg4, params4):
 class LastStageLogits:
     """Records last-stage logits per request while active, on paged and
     dense stage engines: the final prefill pass's (the last chunk wins) and
-    every decode pass's (by position)."""
+    every decode pass's (by position); ``engines`` names each node's
+    engine class in the last run (``_recorded_run``)."""
 
     def __init__(self):
         self.prefill, self.decode = {}, {}
 
     def __enter__(self):
         self._orig = (PagedStageEngine.prefill_chunk,
-                      StageEngine.prefill_stage, _StageEngineBase.decode_stage)
+                      StageEngine.prefill_stage,
+                      PagedStageEngine.prefill_stage,
+                      _StageEngineBase.decode_stage)
         rec = self
-        orig_chunk, orig_stage, orig_dec = self._orig
+        orig_chunk, orig_stage, orig_paged_stage, orig_dec = self._orig
 
         def record(eng, slot, out):
             if eng.is_last:
@@ -1725,6 +1767,9 @@ class LastStageLogits:
         def prefill_stage(eng, slot, x, entry):
             return record(eng, slot, orig_stage(eng, slot, x, entry))
 
+        def paged_prefill_stage(eng, slot, x, entry):
+            return record(eng, slot, orig_paged_stage(eng, slot, x, entry))
+
         def decode_stage(eng, items):
             outs = orig_dec(eng, items)
             if eng.is_last:
@@ -1735,11 +1780,13 @@ class LastStageLogits:
 
         PagedStageEngine.prefill_chunk = prefill_chunk
         StageEngine.prefill_stage = prefill_stage
+        PagedStageEngine.prefill_stage = paged_prefill_stage
         _StageEngineBase.decode_stage = decode_stage
         return self
 
     def __exit__(self, *exc):
         (PagedStageEngine.prefill_chunk, StageEngine.prefill_stage,
+         PagedStageEngine.prefill_stage,
          _StageEngineBase.decode_stage) = self._orig
 
 
@@ -3396,22 +3443,25 @@ def engines_phase(cfg, params):
     return engine_k2, (k1.launches, k1.split_launches)
 
 
-def _recorded_run(cfg, params, argv, dev):
-    """The cluster of ``argv`` on ``dev``, last-stage logits recorded:
-    returns (recorder, tokens, seconds)."""
+def _recorded_run(cfg, params, argv, dev, plan=None):
+    """The cluster of ``argv`` (on ``plan`` when given) on ``dev``,
+    last-stage logits recorded: returns (recorder, tokens, seconds)."""
     args = serve.parse_args(argv + ["--device", dev])
     with LastStageLogits() as rec:
-        _, reqs, _, dt = serve.run_cluster(cfg, args, params, verbose=False)
+        rt, reqs, _, dt = serve.run_cluster(cfg, args, params, plan=plan,
+                                            verbose=False)
+    rec.engines = {n: type(e).__name__ for n, e in rt.engines.items()}
     return rec, [r.output for r in reqs], dt
 
 
-def _xcheck_runs(cfg, params, argv):
-    """The paged cluster on cuda and the CPU, last-stage logits recorded:
-    returns ((gpu recorder, gpu tokens), (cpu recorder, cpu tokens))."""
+def _xcheck_runs(cfg, params, argv, plan=None):
+    """The cluster of ``argv`` on cuda and the CPU, last-stage logits
+    recorded: returns ((gpu recorder, gpu tokens), (cpu recorder, cpu
+    tokens))."""
     runs = {}
     for name, dev, p in (("cuda", DEVICE, params),
                          ("cpu", "cpu", map_tree(lambda t: t.cpu(), params))):
-        rec, toks, dt = _recorded_run(cfg, p, argv, dev)
+        rec, toks, dt = _recorded_run(cfg, p, argv, dev, plan)
         runs[name] = (rec, toks)
         print(f"  {name}: tokens {toks} ({dt:.2f} s)")
     return runs["cuda"], runs["cpu"]
@@ -3651,13 +3701,16 @@ def families_cross_check(seed):
                            family_argv(XCHECK_ARGV, arch), seed)
 
 
-def family_cross_check(cfg, argv, seed):
+def family_cross_check(cfg, argv, seed, plan=None):
     """``families_cross_check``'s two gates for one f32 config, served by
-    the cluster of ``argv`` on cuda and on the CPU."""
+    the cluster of ``argv`` (on ``plan`` when given) on cuda and on the
+    CPU.  Returns the gaps and limits, and each node's engine class."""
     print(f"  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} float32, "
           "init's weights")
     params = family_params(cfg, seed)
-    (g, g_tok), (c, c_tok) = _xcheck_runs(cfg, params, argv)
+    (g, g_tok), (c, c_tok) = _xcheck_runs(cfg, params, argv, plan)
+    require(g.engines == c.engines, f"{cfg.name}: engines on cuda "
+                                    f"{g.engines}, on the CPU {c.engines}")
     require(g_tok == c_tok, f"{cfg.name}: greedy tokens differ on "
                             f"init's weights: cuda {g_tok} cpu {c_tok}")
     sign = torch.randint(0, 2, params["embed"].shape, device=DEVICE,
@@ -3665,7 +3718,7 @@ def family_cross_check(cfg, argv, seed):
                              device=DEVICE).manual_seed(seed + 1))
     apart = dict(params, embed=params["embed"] *
                  (1 + (2 * sign - 1) * 2.0 ** -24))
-    rec = _recorded_run(cfg, apart, argv, DEVICE)[0]
+    rec = _recorded_run(cfg, apart, argv, DEVICE, plan)[0]
     gap, rounding = _max_gap(g, c), _max_gap(rec, g)
     limit = max(XCHECK_TOL["atol"], FAMILY_ROUNDING_FACTOR * rounding)
     print(f"  {cfg.name}, init's weights: greedy tokens equal; "
@@ -3676,7 +3729,7 @@ def family_cross_check(cfg, argv, seed):
                           f"differ by {gap:.3e} > {limit:.3e}")
     print(f"  {cfg.name}: fan-in-scaled weights")
     (g, g_tok), (c, c_tok) = _xcheck_runs(cfg, fan_in_scaled(params),
-                                          argv)
+                                          argv, plan)
     worst = _compare_logits(g, c, "decode")
     require(g_tok == c_tok, f"{cfg.name}: greedy tokens differ: "
                             f"cuda {g_tok} cpu {c_tok}")
@@ -3684,7 +3737,8 @@ def family_cross_check(cfg, argv, seed):
           f"worst logit gap {worst:.3e}")
     del params, apart
     release_device_memory()
-    return dict(init_gap=gap, init_limit=limit, scaled_gap=worst)
+    return dict(init_gap=gap, init_limit=limit, scaled_gap=worst,
+                engines=g.engines)
 
 
 # ---------------------------------------------------------------------------
@@ -3711,17 +3765,18 @@ def windowed_layers(cfg):
     return sum(b.attn in ("local", "swa") for b in cfg.blocks)
 
 
-def check_gemma3_launches(cfg, prefills, what):
+def check_gemma3_launches(cfg, prefills, what, k1_want=0):
     """K2 launches == layers x prefills, all on the tensor cores, the
-    local layers' share with a window; K1 none."""
+    local layers' share with a window; K1 == ``k1_want``."""
     want, want_w = cfg.num_layers * prefills, windowed_layers(cfg) * prefills
     require(k2.launches == want and k2.tc_launches == want and
-            k2.window_launches == want_w and k1.launches == 0,
+            k2.window_launches == want_w and k1.launches == k1_want,
             f"{what}: K2 {k2.launches} ({k2.tc_launches} tensor-core, "
             f"{k2.window_launches} windowed), K1 {k1.launches}; expected "
-            f"{want} ({want_w} windowed) and 0")
+            f"{want} ({want_w} windowed) and {k1_want}")
     return dict(k2=k2.launches, k2_tc=k2.tc_launches,
-                k2_window=k2.window_launches, k1=k1.launches)
+                k2_window=k2.window_launches, k1=k1.launches,
+                k1_split=k1.split_launches)
 
 
 def gemma3_phase(seed, card):
@@ -3729,8 +3784,7 @@ def gemma3_phase(seed, card):
     ``launch/serve.py --dense``'s cluster (phase 5's dense checks) and
     ``Engine``, each with exact launch counts (K2 == 48 x 4 prefills, all
     tensor-core, 40 x 4 windowed; K1 none), tokens/s, peak memory and
-    wall time; then its paged entry points raise item 7 (c2) before any
-    weights are drawn.  Returns the counts and rates."""
+    wall time.  Returns the counts, rates and the cluster's tokens."""
     t_phase = time.perf_counter()
     cfg = family_config(GEMMA3)
     print(f"  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
@@ -3779,22 +3833,14 @@ def gemma3_phase(seed, card):
           f"(bf16, other batch shapes): {agree} of {etoks}", flush=True)
     del params, eng
     release_device_memory()
-
-    for flags in (["--paged"], ["--cluster", "A100,L4", "--stages", "2"]):
-        try:
-            serve.main(["--arch", GEMMA3, "--device", DEVICE] + flags)
-        except NotImplementedError as e:
-            require("item 7 (c2)" in str(e), f"{flags}: {e}")
-            print(f"  serve.py {' '.join(flags)}: NotImplementedError ({e})")
-        else:
-            require(False, f"serve.py {' '.join(flags)} served {GEMMA3}")
     wall = time.perf_counter() - t_phase
     print(f"  phase 16 (bf16 runs) wall time {wall:.2f} s", flush=True)
     return dict(layers=cfg.num_layers, cluster=cluster, engine=engine,
                 dense_tokens_per_s=tok_s, dense_s=dt,
                 engine_tokens_per_s=etoks / edt, engine_s=edt,
                 cluster_peak_gib=cluster_peak, engine_peak_gib=engine_peak,
-                engine_agree=agree, engine_tokens=etoks, wall_s=wall)
+                engine_agree=agree, engine_tokens=etoks, wall_s=wall,
+                tokens=tokens)
 
 
 def gemma3_cross_check(seed):
@@ -3803,6 +3849,145 @@ def gemma3_cross_check(seed):
     CPU on an 1100-token prompt, under phase 15's two gates."""
     return family_cross_check(family_config(GEMMA3, 1, "float32"),
                               GEMMA3_XCHECK_ARGV, seed)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: gemma3-12b whole on the paged paths
+# ---------------------------------------------------------------------------
+
+# phase 16's runs without --dense: the paged cluster (serve.py --cluster
+# A100,L4 --stages 2) and PagedEngine (serve.py --paged)
+GEMMA3_PAGED_ARGV = [a for a in GEMMA3_ARGV if a != "--dense"]
+GEMMA3_PAGED_ENGINE_ARGV = GEMMA3_ENGINE_ARGV + ["--paged"]
+# the f32 cross-check: one super-block on a plan whose first node holds
+# only local layers (a dense StageEngine) and whose second holds the
+# global one (a PagedStageEngine)
+GEMMA3_PAGED_XCHECK_ARGV = [a for a in GEMMA3_XCHECK_ARGV if a != "--dense"]
+GEMMA3_PAGED_XCHECK_LAYOUT = {"n0": (0, 3), "n1": (3, 6)}
+
+
+def gemma3_paged_phase(seed, card, dense_tokens):
+    """gemma3-12b whole in bf16 (weights drawn once) on the paged paths:
+    ``launch/serve.py --cluster A100,L4 --stages 2`` (every node a
+    ``PagedStageEngine``: global layers in the pool, ring caches for the
+    local ones) and ``serve.py --paged`` (``PagedEngine``), phase 16's
+    prompts.  Prefill is single-shot: K2 == 48 x 4 prefills, all
+    tensor-core, 160 windowed; K1 == decode passes x paged layers on the
+    cluster and decode steps x 8 in ``PagedEngine``; pools drained.
+    Prints tokens/s, peak memory, wall time and the tokens that agree
+    with phase 16's dense cluster's (bf16: not gated).  Returns the counts
+    and rates."""
+    t_phase = time.perf_counter()
+    cfg = family_config(GEMMA3)
+    n_req = len(GEMMA3_PROMPTS)
+    n_paged = num_paged_layers(cfg)
+    release_device_memory()
+    reset_peak()
+    params = family_params(cfg, seed)
+    sync()
+    print(f"  {cfg.name}: {cfg.num_layers}L, {n_paged} global layers paged, "
+          f"{windowed_layers(cfg)} local layers on ring caches; "
+          f"{param_bytes(params) / 1e9:.2f} GB of bf16 weights", flush=True)
+
+    def agreeing_tokens(reqs):
+        return sum(a == b for r, t in zip(reqs, dense_tokens)
+                   for a, b in zip(r.output, t))
+
+    args = serve.parse_args(GEMMA3_PAGED_ARGV + ["--device", DEVICE])
+    serve.run_cluster(cfg, serve.parse_args(
+        GEMMA3_PAGED_ARGV + ["--device", DEVICE, "--new-tokens", "2"]),
+        params, verbose=False)                              # CUDA warm-up
+    zero_counts()
+    with LastStageLogits() as rec:
+        rt, reqs, p, dt = serve.run_cluster(cfg, args, params)
+    check_requests(cfg, reqs, args.new_tokens, rt.served, rec)
+    check_head(cfg, rt)
+    engines = list(rt.engines.values())
+    require(all(isinstance(e, PagedStageEngine) for e in engines),
+            f"paged cluster engines: "
+            f"{ {n: type(e).__name__ for n, e in rt.engines.items()} }")
+    used = rt.pool_pages_used()
+    require(all(u == 0 for u in used.values()), f"pages leaked: {used}")
+    prefills = n_req + sum(r.preemptions for r in reqs)
+    require(sum(e.prefills * e.layers.num_layers for e in engines)
+            == cfg.num_layers * prefills,
+            f"stage prefills {[e.prefills for e in engines]} for "
+            f"{prefills} request prefills")
+    cluster = check_gemma3_launches(cfg, prefills, "paged cluster",
+                                    k1_expected(engines))
+    cluster_peak = peak_gib()
+    cluster_agree = agreeing_tokens(reqs)
+    toks = sum(len(r.output) for r in reqs)
+    # seconds inside decode passes (the card synchronised around each);
+    # the rest of the run is the single-shot prefills and the host's loop
+    decode_s = dict(rt.node_decode_s)
+    print(f"  paged cluster: placement " + ", ".join(
+        f"{n}=[{r.start},{r.end})"
+        for n, r in sorted(p.placement.assignment.items()))
+        + f"; pools {({n: e.pool.num_pages for n, e in rt.engines.items()})}"
+        f" pages; K2 launches {cluster['k2']} = {cfg.num_layers} layers x "
+        f"{prefills} single-shot prefills, all tensor-core, "
+        f"{cluster['k2_window']} windowed; K1 launches {cluster['k1']} = "
+        f"decode passes {({n: e.decode_steps for n, e in rt.engines.items()})}"
+        f" x paged layers {({n: e.n_paged for n, e in rt.engines.items()})}, "
+        f"{cluster['k1_split']} split; {toks / dt:.2f} tokens/s in "
+        f"{dt:.3f} s on {card}, of which decode passes "
+        f"{({n: round(v, 4) for n, v in decode_s.items()})} s; peak device "
+        f"memory {cluster_peak:.2f} GiB; tokens agreeing with phase 16's "
+        f"dense cluster's (bf16): {cluster_agree} of {toks}", flush=True)
+    del rt, engines
+    release_device_memory()
+
+    pargs = serve.parse_args(GEMMA3_PAGED_ENGINE_ARGV + ["--device", DEVICE])
+    serve.run_paged(cfg, serve.parse_args(
+        GEMMA3_PAGED_ENGINE_ARGV + ["--device", DEVICE, "--new-tokens", "2"]),
+        params, verbose=False)                              # CUDA warm-up
+    release_device_memory()
+    reset_peak()
+    zero_counts()
+    eng, preqs, pdt = serve.run_paged(cfg, pargs, params, verbose=False)
+    check_requests(cfg, preqs, pargs.new_tokens)
+    require(eng.pool.used == 0 and not eng.active.any(),
+            f"PagedEngine: {eng.pool.used} pages held")
+    engine = check_gemma3_launches(cfg, eng.prefills, "PagedEngine",
+                                   eng.decode_steps * n_paged)
+    engine_peak = peak_gib()
+    engine_agree = agreeing_tokens(preqs)
+    ptoks = sum(len(r.output) for r in preqs)
+    print(f"  PagedEngine: pool {eng.pool.num_pages} pages; K2 launches "
+          f"{engine['k2']} = {cfg.num_layers} x {eng.prefills} prefills, all "
+          f"tensor-core, {engine['k2_window']} windowed; K1 launches "
+          f"{engine['k1']} = {eng.decode_steps} decode steps x {n_paged}, "
+          f"{engine['k1_split']} split; {ptoks / pdt:.2f} tokens/s in "
+          f"{pdt:.3f} s; peak device memory {engine_peak:.2f} GiB; tokens "
+          f"agreeing with phase 16's dense cluster's (bf16): {engine_agree} "
+          f"of {ptoks}", flush=True)
+    del params, eng
+    release_device_memory()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 18 (bf16 runs) wall time {wall:.2f} s", flush=True)
+    return dict(cluster=cluster, engine=engine,
+                cluster_tokens_per_s=toks / dt, cluster_s=dt,
+                cluster_decode_s=decode_s,
+                engine_tokens_per_s=ptoks / pdt, engine_s=pdt,
+                cluster_peak_gib=cluster_peak, engine_peak_gib=engine_peak,
+                cluster_agree=cluster_agree, engine_agree=engine_agree,
+                tokens=toks, wall_s=wall)
+
+
+def gemma3_paged_cross_check(seed):
+    """One super-block of gemma3-12b at full width in f32 on the paged
+    cluster of a forced plan: n0 = [0, 3) holds only local layers (a dense
+    ``StageEngine``), n1 = [3, 6) the global one (a ``PagedStageEngine``);
+    cuda and the CPU on an 1100-token prompt under phase 15's two
+    gates."""
+    cfg = family_config(GEMMA3, 1, "float32")
+    out = family_cross_check(cfg, GEMMA3_PAGED_XCHECK_ARGV, seed,
+                             plan=mesh_plan(cfg, GEMMA3_PAGED_XCHECK_LAYOUT))
+    want = {"n0": "StageEngine", "n1": "PagedStageEngine"}
+    require(out["engines"] == want, f"engines {out['engines']}, not {want}")
+    print(f"  engines {out['engines']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4016,10 +4201,10 @@ def gemma3_training_cross_check(seed):
     """Phase 17's f32 check: one super-block of gemma3-12b at full width in
     f32, the loss and every gradient on one B=1 x GEMMA3_XCHECK_SEQ batch
     on cuda (K2 and its backward) and on the CPU (plain versions), same
-    weights, under phase 15's two gates on ``_grad_gap``: on ``init``'s
-    weights within max(1e-3, FAMILY_ROUNDING_FACTOR x the gap between two
-    cuda runs whose embeddings are one rounding apart); on
-    ``fan_in_scaled`` weights within 1e-3.  No optimizer step: AdamW's
+    fan-in-scaled weights, within 1e-3 of ``_grad_gap``.  (On ``init``'s
+    weights one rounding of the embeddings moves the port's own cuda
+    gradients by ~1 of a leaf's largest value, so phase 15's rounding
+    gate there could not fail: it is not run.)  No optimizer step: AdamW's
     moments would double the CPU's 18.8 GB of params and gradients."""
     cfg = family_config(GEMMA3, 1, "float32")
     batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, batch_size=1,
@@ -4030,43 +4215,23 @@ def gemma3_training_cross_check(seed):
     print(f"  {cfg.name}: {cfg.num_layers}L d={cfg.d_model} float32, "
           f"{sum(x.numel() for x in tree_leaves(params)) / 1e9:.3f} B "
           f"params; B=1 S={GEMMA3_XCHECK_SEQ}")
-    out = {}
-    for name, weights in (("init", lambda p: p), ("fan-in-scaled",
-                                                  fan_in_scaled)):
-        p = weights(params)
-        t0 = time.perf_counter()
-        g = _loss_and_grads(cfg, p, on[DEVICE])
-        t1 = time.perf_counter()
-        c = _loss_and_grads(cfg, map_tree(lambda x: x.cpu(), p), on["cpu"])
-        t2 = time.perf_counter()
-        gap = _grad_gap(g, c)
-        if name == "init":
-            sign = torch.randint(0, 2, p["embed"].shape, device=DEVICE,
-                                 generator=torch.Generator(
-                                     device=DEVICE).manual_seed(seed + 1))
-            apart = dict(p, embed=p["embed"] *
-                         (1 + (2 * sign - 1) * 2.0 ** -24))
-            rounding = _grad_gap(_loss_and_grads(cfg, apart, on[DEVICE]), g)
-            del apart, sign
-            limit = max(XCHECK_TOL["atol"],
-                        FAMILY_ROUNDING_FACTOR * rounding)
-            extra = (f" against {rounding:.3e} between two cuda runs whose "
-                     "embeddings are one rounding apart")
-        else:
-            rounding, limit, extra = None, XCHECK_TOL["atol"], ""
-        print(f"  {name} weights: loss cuda {g[0].item():.6f} cpu "
-              f"{c[0].item():.6f}; max over the loss and {len(g) - 1} "
-              f"gradients of max|cuda-cpu| / max|cpu| = {gap:.3e}{extra}; "
-              f"limit {limit:.3e} (cuda {t1 - t0:.1f} s, cpu {t2 - t1:.1f} "
-              "s)", flush=True)
-        require(gap <= limit, f"gemma3 f32 gradients on {name} weights "
-                              f"differ by {gap:.3e} > {limit:.3e}")
-        out[name] = dict(gap=gap, rounding=rounding, limit=limit)
-        del p, g, c
-        release_device_memory()
-    del params
+    p = fan_in_scaled(params)
+    t0 = time.perf_counter()
+    g = _loss_and_grads(cfg, p, on[DEVICE])
+    t1 = time.perf_counter()
+    c = _loss_and_grads(cfg, map_tree(lambda x: x.cpu(), p), on["cpu"])
+    t2 = time.perf_counter()
+    gap, limit = _grad_gap(g, c), XCHECK_TOL["atol"]
+    print(f"  fan-in-scaled weights: loss cuda {g[0].item():.6f} cpu "
+          f"{c[0].item():.6f}; max over the loss and {len(g) - 1} "
+          f"gradients of max|cuda-cpu| / max|cpu| = {gap:.3e}; limit "
+          f"{limit:.3e} (cuda {t1 - t0:.1f} s, cpu {t2 - t1:.1f} s)",
+          flush=True)
+    require(gap <= limit, f"gemma3 f32 gradients on fan-in-scaled weights "
+                          f"differ by {gap:.3e} > {limit:.3e}")
+    del p, g, c, params
     release_device_memory()
-    return out
+    return {"fan-in-scaled": dict(gap=gap, limit=limit)}
 
 
 # ---------------------------------------------------------------------------
@@ -4308,6 +4473,17 @@ def main() -> int:
     gemma3_train["xcheck"] = gemma3_training_cross_check(args.seed)
     print(f"  phase 17 took {time.perf_counter() - t0:.2f} s")
 
+    phase("gemma3-12b whole on the paged paths: the paged cluster and "
+          "PagedEngine (K1 at D=256 in the 8 global layers, ring caches in "
+          "the 40 local ones)")
+    t0 = time.perf_counter()
+    gemma3_paged = gemma3_paged_phase(args.seed, card,
+                                      gemma3.pop("tokens"))
+    phase("cross-check f32, one super-block (6 layers): gemma3's paged "
+          "cluster on [0,3) dense + [3,6) paged, cuda vs cpu")
+    gemma3_paged["xcheck"] = gemma3_paged_cross_check(args.seed)
+    print(f"  phase 18 took {time.perf_counter() - t0:.2f} s")
+
     print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
           f"{dense_tok_s:.2f} tokens/s on {card}")
     main1, main2 = t1["decode"], t2["S511"]
@@ -4333,6 +4509,8 @@ def main() -> int:
          "workers_launches": {k: v["k1"] for k, v in workers.items()},
          "train_launches": train["launches"]["k1"],
          "families_launches": {k: v["k1"] for k, v in families.items()},
+         "gemma3_paged_launches": {
+             k: gemma3_paged[k]["k1"] for k in ("cluster", "engine")},
          "max_abs_err": k1_err, "worst_err_over_limit": k1_worst,
          "ms": main1["ms"], "plain_ms": main1["plain_ms"],
          "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
@@ -4357,6 +4535,10 @@ def main() -> int:
          "families_launches": {k: v["k2"] for k, v in families.items()},
          "gemma3_launches": {"cluster": gemma3["cluster"],
                              "engine": gemma3["engine"]},
+         "gemma3_paged_launches": {
+             k: {key: gemma3_paged[k][key]
+                 for key in ("k2", "k2_tc", "k2_window")}
+             for k in ("cluster", "engine")},
          "gemma3_train_launches": {
              key: gemma3_train["launches"][key]
              for key in ("k2", "k2_window")},
@@ -4395,7 +4577,7 @@ def main() -> int:
                            else val)
                      for key, val in train.items() if key != "launches"},
         "families": families, "gemma3": gemma3,
-        "gemma3_training": gemma3_train}
+        "gemma3_training": gemma3_train, "gemma3_paged": gemma3_paged}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

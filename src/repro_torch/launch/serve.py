@@ -8,12 +8,14 @@ node's engine lives on the one device (``--device``, CUDA by default), as
 the reference plays every node in one process.  ``--arch`` names any arch
 of the port's registry: ``smollm_360m``, ``olmo_1b``, ``starcoder2_7b``,
 ``chameleon_34b`` or ``gemma3_12b``.  gemma3's stack mixes windowed and
-global layers, so it serves with ``--dense`` only: its paged paths
-(``--paged``, ``--cluster`` without ``--dense``) are ROADMAP queue 1 item 7
-(c2) and raise before any weights are drawn:
+global layers: on the paged paths (``--paged``, and ``--cluster`` without
+``--dense``) its global layers page their K/V while the windowed ones keep
+dense ring caches, and every prompt prefills single-shot (one pass of the
+whole prompt per stage, then the global layers' K/V moves into the pool);
+all-paged stacks prefill in chunks of 16 tokens instead:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b \
-      --cluster A100,L4 --stages 2 --dense --prompt 600,1100,1500,2100 \
-      --new-tokens 16 --max-len 2128
+      --cluster A100,L4 --stages 2 --prompt 600,1100,1500,2100 \
+      --new-tokens 16 --max-len 2128            # add --dense: dense caches
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --cluster A100,L4 --stages 2 --batch 4 --prompt 40 --new-tokens 16
@@ -80,7 +82,6 @@ from repro_torch.core import (MILPOptions, ModelProfile, make_serving_cluster,
                               plan)
 from repro_torch.core.cluster import COORDINATOR
 from repro_torch.models import init, resolve_device
-from repro_torch.models.paged import all_blocks_paged
 from repro_torch.serving.autoscaler import Autoscaler
 from repro_torch.serving.engine import EngineConfig, PagedEngine, Request
 from repro_torch.serving.frontend import Frontend
@@ -92,16 +93,6 @@ def build_config(args, arch: Optional[str] = None):
     ``--smoke``, else the full one."""
     arch = arch or args.arch
     return get_smoke_config(arch) if args.smoke else get_config(arch)
-
-
-def require_all_paged(cfg) -> None:
-    """The paged paths serve all-paged stacks only: raise for a hybrid one
-    (windowed layers keep dense caches) before any weights are drawn."""
-    if not all_blocks_paged(cfg):
-        raise NotImplementedError(
-            f"paged serving of {cfg.name} (a hybrid stack: windowed layers "
-            "keep dense caches) is not ported to repro_torch yet (ROADMAP "
-            "queue 1 item 7 (c2)); serve it with --cluster ... --dense")
 
 
 def make_plan(cfg, args):
@@ -164,8 +155,6 @@ def build_runtime(cfg, args, params=None, *, draft=None, transport=None,
     the links of an in-process run.  With ``--serve`` an in-process
     runtime runs on the wall clock.  Returns (runtime, plan)."""
     dev = resolve_device(args.device)
-    if not args.dense:
-        require_all_paged(cfg)
     p = plan if plan is not None else make_plan(cfg, args)
     if verbose:
         for node, rng_ in sorted(p.placement.assignment.items()):
@@ -285,11 +274,11 @@ def run_frontdoor(cfg, rt, args, plan_obj=None) -> None:
 
 
 def run_paged(cfg, args, params=None, *, verbose: bool = True):
-    """Single-node paged-KV serving: a full-rectangle pool, chunked prefill
-    for prompts past the 16-token chunk, paged attention decode.  Returns
-    (engine, requests, seconds)."""
+    """Single-node paged-KV serving: a full-rectangle pool, paged attention
+    decode; an all-paged stack prefills in 16-token chunks, a hybrid one
+    (gemma3) single-shot, its global layers' K/V then scattered into the
+    pool.  Returns (engine, requests, seconds)."""
     dev = resolve_device(args.device)
-    require_all_paged(cfg)
     ec = EngineConfig(max_batch=args.batch, max_len=args.max_len,
                       prompt_len=min(16, args.max_len))
     if params is None:

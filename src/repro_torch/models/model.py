@@ -249,15 +249,21 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
+    return stacked_caches(cfg, lambda b: _cache_init_for_block(
+        cfg, b, batch, max_len, dtype, device=dev))
+
+
+def stacked_caches(cfg: ModelConfig, block_cache):
+    """The cache tree of the stack from ``block_cache(BlockSpec)``, one
+    block's cache: ``prologue`` (one per block) and ``super`` (per pattern
+    position, leaves stacked on a leading repeats axis)."""
     caches: Dict[str, Any] = {}
     if cfg.prologue:
-        caches["prologue"] = [
-            _cache_init_for_block(cfg, b, batch, max_len, dtype, device=dev)
-            for b in cfg.prologue]
+        caches["prologue"] = [block_cache(b) for b in cfg.prologue]
     caches["super"] = {
         f"pos{i}": map_tree(
             lambda x: x.expand((cfg.repeats,) + x.shape).clone(),
-            _cache_init_for_block(cfg, b, batch, max_len, dtype, device=dev))
+            block_cache(b))
         for i, b in enumerate(cfg.pattern)}
     return caches
 

@@ -6,6 +6,13 @@ executes only those blocks, receiving token ids (first stage) or incoming
 activations and emitting activations (or sampling-ready logits at the final
 stage).
 
+Paged slices hold full-attention GQA blocks in the node's page pool and
+every other block (a hybrid stack's windowed layers) in a dense fallback
+cache; a slice's block-table row ``li`` counts its paged blocks only.
+All-paged slices prefill in chunks (``stage_prefill_chunk_paged``); hybrid
+ones single-shot (``stage_prefill``), then ``stage_absorb_dense_prefill``
+moves the paged blocks' K/V into the pool.
+
 Per-row entry masking: §3.3 *partial inference* means a request may enter a
 node mid-range, and per-node continuous batching mixes requests with
 different entry layers in one decode step.  Each block therefore applies
@@ -27,7 +34,8 @@ from ..core.placement import LayerRange
 from .common import apply_norm, map_tree, torch_dtype
 from .model import (_apply_block, _apply_block_decode, _cache_init_for_block,
                     _embed, _logits, check_ported, fill_prefill_cache)
-from .paged import _block_decode_paged, _block_prefill_paged, is_paged_block
+from .paged import (_block_decode_paged, _block_prefill_paged,
+                    is_paged_block, scatter_prefill_kv)
 
 
 # ---------------------------------------------------------------------------
@@ -83,18 +91,14 @@ def stage_cache_init(cfg: ModelConfig, layers: LayerRange, batch: int,
 
 
 def stage_cache_init_paged(cfg: ModelConfig, layers: LayerRange, batch: int,
-                           max_len: int) -> List:
-    """Per-block dense caches of the slice: ``{}`` for every paged block,
-    whose KV lives in the node's page pool (dense fallback caches of
-    hybrid stacks are not ported)."""
-    out = []
-    for l, b in stage_blocks(cfg, layers):
-        if not is_paged_block(cfg, b):
-            raise NotImplementedError(
-                f"layer {l} of {cfg.name} is not paged; dense fallback "
-                "caches are not ported yet (ROADMAP queue 1 item 7 (c2))")
-        out.append({})
-    return out
+                           max_len: int, *, device="cuda") -> List:
+    """Like ``stage_cache_init`` but paged blocks hold ``{}`` — their KV
+    lives in the node's page pool."""
+    dt = torch_dtype(cfg.param_dtype)
+    return [{} if is_paged_block(cfg, b)
+            else _cache_init_for_block(cfg, b, batch, max_len, dt,
+                                       device=device)
+            for _, b in stage_blocks(cfg, layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -209,24 +213,56 @@ def stage_prefill_chunk_paged(cfg: ModelConfig, sparams, layers: LayerRange,
 
 
 def stage_decode_paged(cfg: ModelConfig, sparams, layers: LayerRange, tok,
-                       h_in, row_start, cache_pos, k_pages, v_pages, tables):
+                       h_in, row_start, caches, cache_pos, k_pages, v_pages,
+                       tables, rows=None):
     """One batched decode step over the slice with per-row entry masking.
 
     tok: (B,) token ids (consumed only by rows entering at layer 0 —
     possible only when ``layers.start == 0``); h_in: (B,1,d) incoming
-    activations; row_start: (B,) entry layer per row; cache_pos: (B,);
-    tables: (n_local_paged, B, NP) int32.  Every block runs the paged
-    attention kernel over its table row.  Returns ``(h_out (B,1,d),
-    logits (B,V) | None, k_pages, v_pages)`` — logits iff the slice ends
-    the model.
+    activations; row_start: (B,) entry layer per row; caches: one entry
+    per local block, ``{}`` for a paged block and the dense fallback cache
+    of any other, updated in place at ``rows`` (the cache row of each batch
+    row; default row i); cache_pos: (B,); tables: (n_local_paged, B, NP)
+    int32, row ``li`` counting the slice's paged blocks only.  Paged blocks
+    run the paged attention kernel over their table row.  Returns
+    ``(h_out (B,1,d), logits (B,V) | None, caches, k_pages, v_pages)`` —
+    logits iff the slice ends the model.
     """
     h = _stage_input(cfg, sparams, layers, tok, h_in, row_start, cache_pos)
     li = 0
-    for (l, b), p in zip(stage_blocks(cfg, layers), sparams["blocks"]):
-        if not is_paged_block(cfg, b):
-            raise NotImplementedError(f"layer {l} of {cfg.name} is not paged")
-        h_new, k_pages, v_pages = _block_decode_paged(
-            cfg, p, h, k_pages, v_pages, tables[li], cache_pos)
-        li += 1
+    for (l, b), p, c in zip(stage_blocks(cfg, layers), sparams["blocks"],
+                            caches):
+        if is_paged_block(cfg, b):
+            h_new, k_pages, v_pages = _block_decode_paged(
+                cfg, p, h, k_pages, v_pages, tables[li], cache_pos)
+            li += 1
+        else:
+            h_new, _ = _apply_block_decode(cfg, b, p, h, c, cache_pos, rows)
         h = torch.where((row_start <= l)[:, None, None], h_new, h)
-    return h, _stage_logits(cfg, sparams, layers, h), k_pages, v_pages
+    return (h, _stage_logits(cfg, sparams, layers, h), caches, k_pages,
+            v_pages)
+
+
+def stage_absorb_dense_prefill(cfg: ModelConfig, layers: LayerRange, caches,
+                               k_pages, v_pages, table, slot: int,
+                               seq_len: int, page: int):
+    """Move a single-request dense stage prefill's paged-block K/V into the
+    pool.
+
+    Hybrid slices prefill single-shot with ``stage_prefill`` (right at any
+    prompt length), then scatter each paged block's K/V into this slot's
+    pages (in place) and drop those leaves (replaced by ``{}``).  table:
+    the pool's host (n_local_paged, max_batch, NP) int32 table.
+    Param-dtype pools only (int8 pools are ROADMAP queue 1 item 1).
+    Returns (caches', k_pages, v_pages)."""
+    out: List = []
+    li = 0
+    for (l, b), c in zip(stage_blocks(cfg, layers), caches):
+        if not is_paged_block(cfg, b):
+            out.append(c)
+            continue
+        scatter_prefill_kv(k_pages, v_pages, table[li, slot],
+                           c["k"][0, :seq_len], c["v"][0, :seq_len], page)
+        out.append({})
+        li += 1
+    return out, k_pages, v_pages

@@ -9,13 +9,16 @@ Two engines share the Request/EngineConfig API:
     one step for all slots per iteration over the dense caches.  Prompts
     must fit the ``prompt_len`` bucket.  It is the port's single-engine
     oracle: the cluster runtime must reproduce its greedy tokens.
-  * ``PagedEngine`` — KV lives in a ``kv_pool.PagePool`` shared across the
-    layers.  Prompts of any length prefill in ``prompt_len``-sized chunks
-    that append pages; decode runs the paged attention kernel; admission
-    blocks (and decode preempts the newest request, recompute-on-readmit)
-    when the pool is exhausted.  Only all-paged stacks are ported: the
-    hybrid branch (``absorb_dense_prefill``) raises (ROADMAP queue 1
-    item 7 (c2)); a hybrid stack (gemma3) serves through ``Engine``.
+  * ``PagedEngine`` — the full-attention layers' KV lives in a
+    ``kv_pool.PagePool`` shared across them.  Prompts of any length are
+    accepted: an all-paged stack prefills in ``prompt_len``-sized chunks
+    that append pages; a hybrid stack (gemma3: windowed layers beside the
+    global ones) prefills single-shot through the dense ``prefill`` and
+    scatters its paged layers' K/V into pages (``absorb_dense_prefill``),
+    keeping ring caches for the windowed layers.  Decode runs the paged
+    attention kernel in the paged layers; admission blocks (and decode
+    preempts the newest request, recompute-on-readmit) when the pool is
+    exhausted.
 
 Both run on ``device`` (CUDA unless the caller asks for the CPU) and
 sample on the host from float32 logits.
@@ -33,7 +36,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..models.common import map_tree, resolve_device
 from ..models.model import decode_step, init_caches, prefill
-from ..models.paged import (all_blocks_paged, decode_step_paged,
+from ..models.paged import (absorb_dense_prefill, all_blocks_paged,
+                            decode_step_paged, init_caches_paged,
                             paged_layer_counts, prefill_chunk_paged)
 from .kv_pool import PagePool, full_rectangle_pages
 from .sampling import sample_token
@@ -229,8 +233,11 @@ class PagedEngine(_EngineBase):
     """Continuous-batching engine over a unified KV page pool.
 
     Differences from the dense ``Engine``:
-      * prompts of any length are accepted — they prefill in
-        ``prompt_len``-sized chunks that append pages on demand;
+      * prompts of any length are accepted — all-paged stacks prefill in
+        ``prompt_len``-sized chunks that append pages on demand; hybrid
+        stacks (windowed blocks) prefill single-shot and scatter their
+        full-attention K/V into pages, keeping dense caches only for the
+        fallback blocks;
       * decode runs the paged attention kernel over the block tables;
       * capacity is the *pool*, not max_batch x max_len: admission blocks
         while the pool is full, and decode-time growth preempts the newest
@@ -242,13 +249,12 @@ class PagedEngine(_EngineBase):
                  *, num_pages: Optional[int] = None, page_size: int = 16,
                  kv_dtype: Optional[str] = None, rng_seed: int = 0,
                  device="cuda"):
-        if not all_blocks_paged(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: paged serving of a hybrid stack "
-                "(absorb_dense_prefill) is not ported yet (ROADMAP queue 1 "
-                "item 7 (c2))")
         super().__init__(cfg, params, engine_cfg, rng_seed, device)
         ec = engine_cfg
+        # the fallback caches first: a stack the port does not carry raises
+        # there (check_ported), before the pool finds nothing to page
+        self.caches = init_caches_paged(cfg, ec.max_batch, ec.max_len,
+                                        device=self.device)
         if num_pages is None:
             # full static allocation (one rectangle); pass a smaller pool to
             # oversubscribe and exercise admission control / preemption
@@ -258,6 +264,7 @@ class PagedEngine(_EngineBase):
         self.pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
                              max_batch=ec.max_batch, max_seq_len=ec.max_len,
                              kv_dtype=kv_dtype, device=self.device)
+        self._all_paged = all_blocks_paged(cfg)
         self._n_pro, self._n_pp = paged_layer_counts(cfg)
         self._order = np.full((ec.max_batch,), -1, np.int64)
         self._admit_seq = 0
@@ -283,14 +290,30 @@ class PagedEngine(_EngineBase):
         return tp, ts
 
     def _prefill(self, req: Request, slot: int) -> np.ndarray:
-        """Prefill one request into its pages (chunked); returns last-token
-        logits.  A preempted request re-prefills prompt + already-generated
-        tokens (recompute) so its output continues where it left off."""
+        """Prefill one request into its pages; returns last-token logits.
+        A preempted request re-prefills prompt + already-generated tokens
+        (recompute) so its output continues where it left off."""
         prompt = np.asarray(req.prompt, np.int64)
         if len(req.output) > 1:
             prompt = np.concatenate(
                 [prompt, np.asarray(req.output[:-1], np.int64)])
         pool = self.pool
+        self.prefills += 1
+        if not self._all_paged:
+            # hybrid stack: single-shot dense prefill (right at any prompt
+            # length), then the paged layers' K/V moves into pages and the
+            # fallback caches are spliced into this slot
+            logits, caches1 = prefill(self.cfg, self.params,
+                                      self._host(prompt)[None, :],
+                                      max_len=self.ec.max_len)
+            caches1, pool.k, pool.v = absorb_dense_prefill(
+                self.cfg, caches1, pool.k, pool.v, pool.table, slot,
+                len(prompt), pool.page)
+            _map2(lambda full, one: _splice_slot(full, one, slot),
+                  self.caches, caches1)
+            return logits[0].float().cpu().numpy()
+        # chunked prefill: no truncation at any length, pages appended
+        # ahead of admission (ensure() already allocated them)
         chunk = max(1, self.ec.prompt_len)
         tp, ts = self._tables(slot)
         for off in range(0, len(prompt), chunk):
@@ -301,7 +324,6 @@ class PagedEngine(_EngineBase):
                 self.cfg, self.params, tok,
                 torch.tensor([off], device=self.device), pool.k, pool.v,
                 tp, ts, active_blocks=n_act)
-        self.prefills += 1
         return logits[0].float().cpu().numpy()
 
     @torch.no_grad()
@@ -384,8 +406,8 @@ class PagedEngine(_EngineBase):
             return 0
         tp, ts = self._tables()
         pool = self.pool
-        logits, pool.k, pool.v = decode_step_paged(
-            self.cfg, self.params, self._host(self.tokens),
+        logits, self.caches, pool.k, pool.v = decode_step_paged(
+            self.cfg, self.params, self._host(self.tokens), self.caches,
             self._host(self.positions), pool.k, pool.v, tp, ts)
         self.decode_steps += 1
         return self._sample_slots(logits.float().cpu().numpy())

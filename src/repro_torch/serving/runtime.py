@@ -15,9 +15,11 @@ when asked), as the reference runs every node in one process;
 
 Event loop: a virtual-clock heap of deliveries (or the wall-clock mailbox,
 below).  Prefill hops execute inline
-as they arrive: in paged mode chunked across stages (chunk n+1 enters
-stage 0 as soon as chunk n left it), in dense mode single-shot, one hop per
-stage, with a guard that drops a duplicate delivery; decode inputs
+as they arrive: for an all-paged stack in paged mode chunked across stages
+(chunk n+1 enters stage 0 as soon as chunk n left it), in dense mode and
+for a hybrid stack (gemma3's windowed and global layers) in paged mode
+single-shot, one hop per stage carrying the whole prompt, with a guard
+that drops a duplicate delivery; decode inputs
 accumulate in per-node inboxes and run as batched ``decode_stage`` calls
 per node per iteration.
 
@@ -118,10 +120,8 @@ over a peer link.  ``kill_worker`` SIGKILLs one; ``fail_node`` +
 ``apply_plan`` replan around it, respawning a worker for a node that
 re-enters the placement; ``shutdown`` reaps them all.
 
-Not ported yet (the arguments raise; ROADMAP queue 1): int8 KV pools
-(item 1, and with them the int8 handoff over the wire) and paged serving
-of a stack that is not all-paged (item 7 (c2)); such a stack (gemma3's
-local and global layers) serves with ``paged=False``.
+Not ported yet (the argument raises; ROADMAP queue 1): int8 KV pools
+(item 1, and with them the int8 handoff over the wire).
 """
 from __future__ import annotations
 
@@ -325,19 +325,15 @@ class ClusterRuntime:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if kv_dtype == "int8":
             raise _not_ported("int8 KV serving", 1)
-        if paged and not all_blocks_paged(cfg):
-            # the reference serves a hybrid stack paged with single-shot
-            # prefill (repro/serving/runtime.py: ``_chunked``); the port
-            # serves it dense only
-            raise _not_ported(f"paged serving of {cfg.name} (a hybrid "
-                              "stack: windowed blocks keep dense caches)",
-                              "7 (c2)")
         self.cfg = cfg
         self.params = params
         self.ec = engine_cfg
         self.device = resolve_device(device)
         self.max_inflight = max_inflight
         self.paged = paged
+        # chunked prefill needs every block paged; a hybrid stack prefills
+        # single-shot (its windowed blocks keep dense caches)
+        self._chunked = paged and all_blocks_paged(cfg)
         self.page_size = page_size
         self.pool_pages = dict(pool_pages or {})
         self.rng_seed = rng_seed
@@ -896,7 +892,7 @@ class ClusterRuntime:
             self._jseq += 1
             self.jobs[job.req.request_id] = job
             self.served[job.req.request_id] = job.pipe
-            if self.paged:      # chunked prefill (all-paged stacks)
+            if self._chunked:   # chunked prefill (all-paged stacks)
                 self._send_chunk(job, 0)
             else:
                 tokens = self._prefill_tokens(job)
@@ -918,7 +914,8 @@ class ClusterRuntime:
     def _hop(self, job: _Job, si: int, off: Optional[int]
              ) -> Callable[[Any], None]:
         """Delivery of a prefill payload to stage ``si``: the whole prompt
-        (``off=None``, dense) or the chunk at ``off`` (paged)."""
+        (``off=None``: dense, or a hybrid stack paged) or the chunk at
+        ``off`` (an all-paged stack paged)."""
         epoch = job.epoch
         return lambda x: self._prefill_at(job, epoch, si, x, off)
 

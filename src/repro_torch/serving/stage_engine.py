@@ -5,10 +5,12 @@ A stage engine holds only the params (``models.stage.stage_params``) and KV
 for one node's assigned ``LayerRange`` and exposes the stage-level API the
 ``ClusterRuntime`` drives:
 
-  prefill_stage(slot, x, entry)    dense: single-shot prompt pass of one
-                                   request (``StageEngine``)
-  prefill_chunk(slot, x, entry, start)   paged: chunked prefill of one
-                                   request (``PagedStageEngine``)
+  prefill_stage(slot, x, entry)    single-shot prompt pass of one request
+                                   (``StageEngine``, and a
+                                   ``PagedStageEngine`` of a hybrid stack)
+  prefill_chunk(slot, x, entry, start)   chunked prefill of one request
+                                   (``PagedStageEngine`` of an all-paged
+                                   stack)
   decode_stage(items)              ONE batched decode step over whatever
                                    stage-work is resident this iteration —
                                    per-node continuous batching; items may
@@ -45,11 +47,12 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.placement import LayerRange
 from ..models.common import map_tree, resolve_device, torch_dtype
-from ..models.paged import all_blocks_paged
-from ..models.stage import (stage_blocks, stage_cache_init, stage_decode,
-                            stage_decode_paged, stage_num_paged_layers,
-                            stage_params, stage_prefill,
-                            stage_prefill_chunk_paged)
+from ..models.paged import all_blocks_paged, is_paged_block
+from ..models.stage import (stage_absorb_dense_prefill, stage_blocks,
+                            stage_cache_init, stage_cache_init_paged,
+                            stage_decode, stage_decode_paged,
+                            stage_num_paged_layers, stage_params,
+                            stage_prefill, stage_prefill_chunk_paged)
 from .engine import EngineConfig, _active_blocks_bucket
 from .kv_pool import PagePool, full_rectangle_pages
 from .sampling import sample_token
@@ -135,6 +138,20 @@ class _StageEngineBase:
         """Allocated page count, or None for an engine without a page
         pool."""
         return None
+
+    # -- prefill input / output -------------------------------------------
+    def _input(self, x, entry: int) -> torch.Tensor:
+        """A prefill input on the device: (1, S) token ids from (S,) ids
+        when ``entry == 0``, else the (1, S, d) activations."""
+        if entry == 0:
+            return torch.as_tensor(np.asarray(x, np.int64),
+                                   device=self.device)[None, :]
+        return x.to(self.device)
+
+    def _output(self, out):
+        """(V,) float32 numpy logits at the final stage, else the (1, S, d)
+        device activations."""
+        return out[0].float().cpu().numpy() if self.is_last else out
 
     # -- sampling (final stage) -----------------------------------------
     def sample(self, logits: np.ndarray, temperature: float) -> int:
@@ -268,11 +285,7 @@ class StageEngine(_StageEngineBase):
         ``entry == 0`` else (1, S, d) activations.  Returns (1, S, d)
         activations as a device tensor, or (V,) last-token logits as
         float32 numpy at the final stage."""
-        if entry == 0:
-            xin = torch.as_tensor(np.asarray(x, np.int64),
-                                  device=self.device)[None, :]
-        else:
-            xin = x.to(self.device)
+        xin = self._input(x, entry)
         out, caches1 = stage_prefill(self.cfg, self.sparams, self.layers, xin,
                                      entry, max_len=self.ec.max_len)
         for full, one in zip(self.caches, caches1):
@@ -280,9 +293,7 @@ class StageEngine(_StageEngineBase):
                 _splice(full[key], one[key], slot)
         self._active_tokens[slot] = xin.shape[1]
         self.prefills += 1
-        if self.is_last:
-            return out[0].float().cpu().numpy()
-        return out
+        return self._output(out)
 
     @torch.no_grad()
     def _decode_step(self, items: List[DecodeItem]):
@@ -338,8 +349,11 @@ class StageEngine(_StageEngineBase):
 
 class PagedStageEngine(_StageEngineBase):
     """Paged-KV stage engine: the node's paged blocks share one ``PagePool``
-    sized from its VRAM.  Decode runs the paged attention kernel in every
-    block; prefill is chunked (all-paged stacks only)."""
+    sized from its VRAM; every other block (a hybrid stack's windowed
+    layers) keeps a dense fallback cache of ``max_batch + 1`` rows.  Decode
+    runs the paged attention kernel in the paged blocks.  An all-paged
+    stack prefills in chunks (``prefill_chunk``), a hybrid one single-shot
+    (``prefill_stage``)."""
 
     def __init__(self, cfg: ModelConfig, params, layers: LayerRange,
                  engine_cfg: EngineConfig, *, num_pages: Optional[int] = None,
@@ -347,11 +361,10 @@ class PagedStageEngine(_StageEngineBase):
         super().__init__(cfg, params, layers, engine_cfg, rng_seed, device)
         ec = engine_cfg
         self.n_paged = stage_num_paged_layers(cfg, layers)
-        if self.n_paged == 0 or not all_blocks_paged(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: only all-paged stacks are ported; a paged "
-                "stage engine of a hybrid stack is ROADMAP queue 1 item 7 "
-                "(c2)")
+        if self.n_paged == 0:
+            raise ValueError(f"slice {layers} of {cfg.name} holds no paged "
+                             "blocks; use the dense StageEngine")
+        self._chunked = all_blocks_paged(cfg)
         if num_pages is None:
             num_pages = full_rectangle_pages(cfg, max_batch=ec.max_batch,
                                              max_len=ec.max_len,
@@ -363,6 +376,9 @@ class PagedStageEngine(_StageEngineBase):
                              max_batch=ec.max_batch + 1,
                              max_seq_len=ec.max_len,
                              paged_layers=self.n_paged, device=self.device)
+        self.caches = stage_cache_init_paged(cfg, layers, ec.max_batch + 1,
+                                             ec.max_len, device=self.device)
+        self.prefills = 0          # prompt passes run on this node (hybrid)
         self.decode_steps = 0      # batched decode passes run on this node
 
     # -- pool ------------------------------------------------------------
@@ -392,15 +408,14 @@ class PagedStageEngine(_StageEngineBase):
     # -- prefill ---------------------------------------------------------
     @torch.no_grad()
     def prefill_chunk(self, slot: int, x, entry: int, start: int):
-        """One prompt chunk through the slice.  x: (C,) tokens or (1, C, d)
-        activations.  Returns chunk activations (1, C, d) as a device
-        tensor, or last-token logits (V,) float32 numpy at the final
-        stage."""
-        if entry == 0:
-            xin = torch.as_tensor(np.asarray(x, np.int64),
-                                  device=self.device)[None, :]
-        else:
-            xin = x.to(self.device)
+        """One prompt chunk through the slice (all-paged stacks).  x: (C,)
+        tokens or (1, C, d) activations.  Returns chunk activations
+        (1, C, d) as a device tensor, or last-token logits (V,) float32
+        numpy at the final stage."""
+        if not self._chunked:
+            raise RuntimeError(f"{self.cfg.name} is a hybrid stack: drive "
+                               "prefill_stage (single-shot) instead")
+        xin = self._input(x, entry)
         C = xin.shape[1]
         pool = self.pool
         n_act = _active_blocks_bucket(start + C, pool.page,
@@ -410,45 +425,85 @@ class PagedStageEngine(_StageEngineBase):
             self.cfg, self.sparams, self.layers, xin, entry, start_t,
             pool.k, pool.v, self._table(slice(slot, slot + 1)),
             active_blocks=n_act)
-        if self.is_last:
-            return out[0].float().cpu().numpy()
-        return out
+        return self._output(out)
+
+    @torch.no_grad()
+    def prefill_stage(self, slot: int, x, entry: int):
+        """Single-shot prompt pass (hybrid stacks): dense prefill of the
+        slice through the flash prefill attention kernel, then the paged
+        blocks' K/V is scattered into this slot's pages and the dense
+        fallback caches spliced into the slot.  x and the return value as
+        in ``prefill_chunk``."""
+        if self._chunked:
+            raise RuntimeError("all-paged slice: drive prefill_chunk instead")
+        xin = self._input(x, entry)
+        out, caches1 = stage_prefill(self.cfg, self.sparams, self.layers, xin,
+                                     entry, max_len=self.ec.max_len)
+        pool = self.pool
+        caches1, pool.k, pool.v = stage_absorb_dense_prefill(
+            self.cfg, self.layers, caches1, pool.k, pool.v, pool.table, slot,
+            xin.shape[1], pool.page)
+        for full, one in zip(self.caches, caches1):
+            for key in full:
+                _splice(full[key], one[key], slot)
+        self.prefills += 1
+        return self._output(out)
 
     # -- KV handoff (disaggregated prefill -> decode) --------------------
+    def _blocks(self):
+        """(global layer, table row or None, dense cache) of every block of
+        the slice: a paged block's table row counts the slice's paged
+        blocks only; any other block has its dense cache."""
+        li = 0
+        for (l, b), c in zip(stage_blocks(self.cfg, self.layers),
+                             self.caches):
+            if is_paged_block(self.cfg, b):
+                yield l, li, c
+                li += 1
+            else:
+                yield l, None, c
+
     def _page_ids(self, li: int, slot: int, tokens: int) -> torch.Tensor:
-        """Page ids of ``slot``'s first ``tokens`` rows in paged layer
-        ``li``, on the pool's device.  Every block of the slice is paged
-        (all-paged stacks only), so a block's position in the slice is its
-        row of the block table."""
+        """Page ids of ``slot``'s first ``tokens`` rows in the slice's
+        paged block ``li``, on the pool's device."""
         nb = -(-tokens // self.pool.page)
         return torch.from_numpy(self.pool.table[li, slot, :nb].astype(
             np.int64)).to(self.device)
 
     def export_kv(self, slot: int, tokens: int, layers: List[int]):
-        """Snapshot this slot's live pages of the given *global* layers as
-        a wire tree ``{layer: {"k", "v"}}`` of (blocks, page, kv heads,
-        head dim) tensors.  Indexing the pool by page id copies, so a
-        payload in flight survives the slot's release and the pages'
-        reuse."""
+        """Snapshot this slot's KV of the given *global* layers as a wire
+        tree: a paged block ships its live pages ``{"k", "v"}`` of
+        (blocks, page, kv heads, head dim), any other block its dense cache
+        row ``{"k", "v", "pos"}``.  Indexing copies, so a payload in flight
+        survives the slot's release and the pages' reuse."""
         want = set(layers)
         out = {}
-        for li, (l, _) in enumerate(stage_blocks(self.cfg, self.layers)):
-            if l in want:
+        for l, li, c in self._blocks():
+            if l not in want:
+                continue
+            if li is None:
+                out[l] = {key: t[slot].clone() for key, t in c.items()}
+            else:
                 pids = self._page_ids(li, slot, tokens)
                 out[l] = {"k": self.pool.k[pids], "v": self.pool.v[pids]}
         return out
 
     def import_kv(self, slot: int, tokens: int, payload) -> None:
-        """Scatter a shipped snapshot into this slot's pages.  The runtime
-        reserves the slot's blocks at admission; ``ensure`` here grows
-        nothing in the common case."""
+        """Scatter a shipped snapshot into this slot: pages for paged
+        blocks, the cache row for the others.  The runtime reserves the
+        slot's blocks at admission; ``ensure`` here grows nothing in the
+        common case."""
         pool = self.pool
         if not pool.ensure(slot, tokens):
             raise RuntimeError(f"import_kv: pool cannot hold {tokens} "
                                f"tokens in slot {slot}")
-        for li, (l, _) in enumerate(stage_blocks(self.cfg, self.layers)):
+        for l, li, c in self._blocks():
             p = payload.get(l)
             if p is None:
+                continue
+            if li is None:
+                for key, a in p.items():
+                    c[key][slot] = a.to(self.device, c[key].dtype)
                 continue
             pids = self._page_ids(li, slot, tokens)
             pool.k[pids] = p["k"].to(self.device, pool.k.dtype)
@@ -459,9 +514,12 @@ class PagedStageEngine(_StageEngineBase):
     def _decode_step(self, items: List[DecodeItem]):
         idx, tok, pos, entry, h_in = self._assemble(items)
         pool = self.pool
-        h, logits, pool.k, pool.v = stage_decode_paged(
-            self.cfg, self.sparams, self.layers, tok, h_in, entry, pos,
-            pool.k, pool.v, self._table(idx))
+        # dense fallback blocks write each row's new K/V at its cache row in
+        # place (pad rows all name the scratch row, which nothing reads)
+        rows = torch.from_numpy(idx).to(self.device)
+        h, logits, _, pool.k, pool.v = stage_decode_paged(
+            self.cfg, self.sparams, self.layers, tok, h_in, entry,
+            self.caches, pos, pool.k, pool.v, self._table(idx), rows)
         self.decode_steps += 1
         return (h, logits.float().cpu().numpy()
                 if logits is not None else None)
@@ -471,6 +529,7 @@ class PagedStageEngine(_StageEngineBase):
         """Truncate ``slot``'s KV to ``tokens`` rows after a partially
         rejected verify pass: param-dtype writes are row-granular, so the
         kept rows are untouched and the rejected ones are masked by
-        position.  (int8 pools would also restore the kept frontier page:
-        ROADMAP queue 1 item 1.)"""
+        position.  A windowed block's ring cache keeps the rejected
+        tokens' K/V, as the reference's does.  (int8 pools would also
+        restore the kept frontier page: ROADMAP queue 1 item 1.)"""
         self.pool.truncate(slot, tokens)

@@ -121,24 +121,51 @@ UNPORTED = {
 }
 
 
+def _serve_tokens(eng, prompts):
+    reqs = [Request(i, p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    return [r.output for r in reqs]
+
+
 @pytest.mark.parametrize("kind", list(UNPORTED))
 def test_unported_blocks_still_raise(kind):
     """MoE, MLA, SSM blocks and encoder-decoders raise in ``param_specs``.
-    Windowed GQA is ported on the dense paths (gemma3), so a windowed
-    stack builds its params and raises on the paged paths instead, naming
-    item 7 (c2)."""
+    Windowed GQA is ported on the dense and the paged paths: a stack of
+    windowed blocks only has nothing to page, so ``PagedEngine`` refuses
+    it as the reference's does and the paged ``ClusterRuntime`` gives
+    every node a dense engine; with full-attention blocks beside the
+    windowed ones (a hybrid stack) ``PagedEngine`` pages those.  Each
+    paged path serves the dense ``Engine``'s greedy tokens (f32, prompts
+    filling the 16-slot rings)."""
     cfg = dataclasses.replace(get_smoke_config("starcoder2_7b"),
                               **UNPORTED[kind])
     if kind != "windowed":
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             tmodel.param_specs(cfg)
         return
-    params = tmodel.init(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 7 \(c2\)"):
-        PagedEngine(cfg, params, EC, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 7 \(c2\)"):
-        ClusterRuntime(cfg, params, two_node_plan(cfg), EC, paged=True,
-                       device="cpu")
+    cfg = f32(cfg)
+    hybrid = dataclasses.replace(cfg, repeats=2, pattern=(
+        cfg.pattern[0], BlockSpec(kind="attn", attn="full")))
+    prompts = random_prompts(cfg, (16, 9, 12), seed=3)
+    for c in (cfg, hybrid):
+        params = tmodel.init(c, 0, device="cpu")
+        want = _serve_tokens(Engine(c, params, EC, device="cpu"), prompts)
+        rt = ClusterRuntime(c, params, two_node_plan(c), EC, paged=True,
+                            device="cpu")
+        assert _serve_tokens(rt, prompts) == want
+        kinds = {type(e).__name__ for e in rt.engines.values()}
+        if c is cfg:
+            assert kinds == {"StageEngine"}
+            with pytest.raises(ValueError, match="nothing to page"):
+                PagedEngine(c, params, EC, device="cpu")
+        else:
+            assert kinds == {"PagedStageEngine"}
+            eng = PagedEngine(c, params, EC, device="cpu")
+            assert _serve_tokens(eng, prompts) == want
+            assert eng.pool.num_layers == 2 and eng.pool.used == 0
 
 
 def test_unknown_norm_and_ffn_raise():

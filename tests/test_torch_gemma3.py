@@ -9,8 +9,9 @@ logits, activations and K/V atol = rtol = 1e-4 (a few layers of f32
 matmuls summed in another order); cache positions, greedy tokens, the
 per-link ledger, counters and virtual-clock latencies exactly equal.
 Every serving case runs the reference's runtime beside the port's on the
-same plan and links.  The paged paths of a hybrid stack are ROADMAP queue
-1 item 7 (c2): each paged entry point raises naming it.
+same plan and links.  The paged paths of the hybrid stack are held
+against the reference in ``tests/test_torch_gemma3_paged.py``; here each
+paged entry point builds on it and gives its global layers page pools.
 """
 import dataclasses
 import functools
@@ -392,7 +393,7 @@ def test_failover_replan_matches_reference():
     assert_drained(rt)
 
 
-# --- the paged paths: item 7 (c2) -------------------------------------------
+# --- the paged entry points -------------------------------------------------
 
 def _paged_entry(name, cfg, params):
     if name == "PagedEngine":
@@ -401,22 +402,49 @@ def _paged_entry(name, cfg, params):
         return tse.PagedStageEngine(cfg, params, LayerRange(0, 6), EC,
                                     device="cpu")
     if name == "stage_cache_init_paged":
-        return tstage.stage_cache_init_paged(cfg, LayerRange(0, 6), 2, 32)
+        return tstage.stage_cache_init_paged(cfg, LayerRange(0, 6), 2, 32,
+                                             device="cpu")
     if name == "ClusterRuntime(paged=True)":
-        return ClusterRuntime(cfg, params, port_plan(cfg, PLANS["2stage"]),
+        return ClusterRuntime(cfg, params, port_plan(cfg, PLANS["3stage"]),
                               EC, paged=True, device="cpu")
-    argv = ["--arch", ARCH, "--smoke", "--device", "cpu"]
-    return serve.main(argv + (["--paged"] if name == "serve --paged" else
-                              ["--cluster", "A100,L4", "--stages", "2"]))
+    argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--new-tokens",
+            "2"]
+    if name == "serve --paged":
+        return serve.run_paged(cfg, serve.parse_args(argv + ["--paged"]),
+                               verbose=False)[0]
+    return serve.run_cluster(cfg, serve.parse_args(
+        argv + ["--cluster", "A100,L4", "--stages", "2"]),
+        verbose=False)[0]
 
 
 @pytest.mark.parametrize("name", [
     "PagedEngine", "PagedStageEngine", "stage_cache_init_paged",
     "ClusterRuntime(paged=True)", "serve --paged",
     "serve --cluster (no --dense)"])
-def test_paged_entry_points_raise_item_7c2(name):
-    """Every paged path of the hybrid stack raises, naming item 7 (c2);
-    ``launch/serve.py`` raises before it draws any weights."""
+def test_paged_entry_points_serve_the_hybrid_stack(name):
+    """Every paged entry point builds on the hybrid stack without a raise:
+    pools for the global layers only, ring caches for the local ones, a
+    dense ``StageEngine`` for a slice with no global layer;
+    ``launch/serve.py`` serves (SMOKE's own weights) and drains."""
     _, _, cfg, params = model()
-    with pytest.raises(NotImplementedError, match=r"item 7 \(c2\)"):
-        _paged_entry(name, cfg, params)
+    got = _paged_entry(name, cfg, params)
+    if name == "stage_cache_init_paged":
+        assert [sorted(c) for c in got] == [["k", "pos", "v"]] * 2 + [[]] \
+            + [["k", "pos", "v"]] * 2 + [[]]
+        assert got[0]["k"].shape == (2, 16, 2, 16)
+    elif name in ("PagedEngine", "serve --paged"):
+        assert isinstance(got, PagedEngine) and got.pool.num_layers == 2
+        assert got.caches["super"]["pos2"] == {}
+        assert got.caches["super"]["pos0"]["k"].shape[2] == 16
+        assert got.pool.used == 0
+    elif name == "PagedStageEngine":
+        assert got.n_paged == 2 and got.pool.num_layers == 2
+        assert [c == {} for c in got.caches] == [False, False, True] * 2
+    else:
+        kinds = {n: type(e).__name__ for n, e in got.engines.items()}
+        if name == "ClusterRuntime(paged=True)":
+            assert kinds == {"n0": "StageEngine", "n1": "PagedStageEngine",
+                             "n2": "PagedStageEngine"}
+        else:
+            assert "PagedStageEngine" in kinds.values()
+        assert all(u == 0 for u in got.pool_pages_used().values())

@@ -156,6 +156,8 @@ def test_chunked_prefill_then_paged_decode_matches(both):
             active_blocks=2)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **MODEL)
     caches = jpaged.init_caches_paged(jcfg, B, NP * page)
+    tcaches = tpaged.init_caches_paged(cfg, B, NP * page, device="cpu")
+    assert tcaches == caches       # all-paged: {} for every block
     nxt = np.asarray(jl).argmax(-1)
     for s in range(3):
         pos = np.full((B,), 2 * C + s, np.int32)
@@ -163,8 +165,8 @@ def test_chunked_prefill_then_paged_decode_matches(both):
             jcfg, jparams, jnp.asarray(nxt, jnp.int32), caches,
             jnp.asarray(pos), jk, jv, jnp.asarray(tpro), jnp.asarray(tsup),
             interpret=True)
-        tl, tk, tv = tpaged.decode_step_paged(
-            cfg, params, t(nxt), t(pos), tk, tv, t(tpro), t(tsup))
+        tl, tcaches, tk, tv = tpaged.decode_step_paged(
+            cfg, params, t(nxt), tcaches, t(pos), tk, tv, t(tpro), t(tsup))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **MODEL)
         nxt = np.asarray(jl).argmax(-1)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **MODEL)
@@ -202,8 +204,8 @@ def test_stage_split_with_mid_node_entry_matches(both):
             jnp.asarray(ent), caches, jnp.asarray(cache_pos),
             jnp.asarray(pools[0]), jnp.asarray(pools[1]),
             jnp.asarray(tables), interpret=True)
-        th, tlog, tk, tv = tstage.stage_decode_paged(
-            cfg, tsp, tl_r, t(tok), t(h_in), t(ent), t(cache_pos),
+        th, tlog, _, tk, tv = tstage.stage_decode_paged(
+            cfg, tsp, tl_r, t(tok), t(h_in), t(ent), [{}, {}], t(cache_pos),
             t(pools[0]), t(pools[1]), t(tables))
         np.testing.assert_allclose(th.numpy(), np.asarray(jh), **MODEL)
         np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **MODEL)
