@@ -57,7 +57,12 @@ Phases (any failure raises and the script exits non-zero):
                 1024 and bidirectional, window 100 (cutting the 64-key
                 tiles) at S = 511 and 2048, Sq != Sk both ways, and
                 phase 16's prefill shapes (S = 600, 1100, 1500, 2100,
-                causal and window 1024) as (B,S,H,D) views; Sq != Sk both
+                causal and window 1024) as (B,S,H,D) views; mixtral's
+                H=48/KH=8 (G = 6) at D=128 (phase 19): S in {4100, 4700}
+                x causal and causal + window 4096, S = 8192 with window
+                4096, Sq = 4700 / Sk = 4100, and phase 19's longest
+                prefill (S = 4700, window 4096) as a (B,S,H,D) view;
+                Sq != Sk both
                 ways; strided (B,S,H,D) views; an empty q launches
                 nothing.  f32 (CUDA-core kernel): max error <= 1e-5; bf16
                 (tensor-core kernel, every bf16 case counted through it):
@@ -109,8 +114,10 @@ Phases (any failure raises and the script exits non-zero):
                 calls in a CUDA graph, with TB/s and the share of its bound;
                 K2 at B=1, causal, bf16: H=15, KH=5, D=64 at S=511 and
                 S=4096, and H=32, KH=8 and H=36, KH=4 (starcoder2) with
-                D=128 at S=4096, and gemma3's H=16, KH=8, D=256 at S=4096,
-                causal and with window 1024, in turns with its
+                D=128 at S=4096, gemma3's H=16, KH=8, D=256 at S=4096,
+                causal and with window 1024, and mixtral's H=48, KH=8,
+                D=128 at S=4096 causal and at S=8192 with window 4096
+                (bounds 0.2085 and 0.6254 ms), in turns with its
                 plain version and ``scaled_dot_product_attention`` (the
                 same function; with a window through a dense boolean mask
                 on repeated K/V, its only route), then both again as 20
@@ -311,7 +318,8 @@ Phases (any failure raises and the script exits non-zero):
                 width, the loss and every gradient on a 1 x 1100 batch on
                 cuda and on the CPU, fan-in-scaled weights, within 1e-3
                 (the largest gap over a leaf's largest value).
-  18. gemma3-12b on the paged paths — runs last.  The whole model in bf16
+  18. gemma3-12b on the paged paths — runs after phase 17.  The whole
+                model in bf16
                 (weights drawn once) through ``launch/serve.py --cluster
                 A100,L4 --stages 2`` (paged: every node a
                 ``PagedStageEngine``, the 8 global layers' K/V in each
@@ -329,6 +337,23 @@ Phases (any failure raises and the script exits non-zero):
                 [3,6), a ``PagedStageEngine``}, the paged cluster on cuda
                 and on the CPU on an 1100-token prompt, under phase 15's
                 two gates.
+  19. mixtral-8x22b — runs last, after collecting phase 18's garbage.  Full
+                width (d=6144, H=48/KH=8, D=128, 8 experts top-2 of d_ff
+                16384, vocab 32768, untied, window 4096 in every layer) at
+                8 of its 56 layers in bf16 (40.9 GB of weights drawn on
+                the card; 56 layers would be 281 GB) through
+                ``launch/serve.py --cluster A100,L4 --stages 2 --dense``
+                (phase 5's dense checks) and ``Engine``, prompts of 1200,
+                2600, 4100 and 4700 tokens, 16 new tokens each: K2
+                launches == 8 x 4 = 32, all tensor-core and windowed, K1
+                none, in each; tokens/s, peak memory, wall time and the
+                tokens on which the two agree printed; layer 0's
+                ``moe_apply`` on the 4700-token prompt's input (its
+                drop_frac) and at the decode shape (T = 4), CUDA-event
+                times beside their bounds, and its share of a B = 4
+                decode step printed.  Then 2 layers in f32 at full width,
+                the dense cluster on cuda and on the CPU on a 600-token
+                prompt, under phase 15's two gates.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
@@ -377,8 +402,13 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.worker import run_worker  # noqa: E402
 from repro_torch.models import init  # noqa: E402
-from repro_torch.models.common import map_tree, tree_leaves  # noqa: E402
-from repro_torch.models.model import loss_fn  # noqa: E402
+from repro_torch.models.attention import gqa_prefill  # noqa: E402
+from repro_torch.models.common import (apply_norm, map_tree,  # noqa: E402
+                                       tree_leaves)
+from repro_torch.models.model import (_embed, _window,  # noqa: E402
+                                      decode_step, init_caches, loss_fn,
+                                      super_layers)
+from repro_torch.models.moe import moe_apply  # noqa: E402
 from repro_torch.models.paged import num_paged_layers  # noqa: E402
 from repro_torch.serving.autoscaler import Autoscaler  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
@@ -440,8 +470,19 @@ DENSE_XCHECK_ARGV = ["--arch", "smollm_360m", "--cluster", "A100,L4",
                      "576"]
 
 
+PHASE_STARTS = []     # (name, host clock at its start), in run order
+
+
 def phase(name):
+    PHASE_STARTS.append((name, time.perf_counter()))
     print(f"\n== {name} ==", flush=True)
+
+
+def phase_seconds():
+    """Seconds of each phase so far, on the host clock: from its start to
+    the next phase's start, the last one to now."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+    return [(name, end - t) for (name, t), end in zip(PHASE_STARTS, ends)]
 
 
 def require(ok, msg):
@@ -810,6 +851,8 @@ K2_MASKS = {"causal": dict(causal=True, window=0),
             "causal+window100": dict(causal=True, window=100)}
 # gemma3's local layers (phase 16): causal with window 1024
 K2_LOCAL_MASK = {"causal+window1024": dict(causal=True, window=1024)}
+# mixtral's sliding-window layers (phase 19): causal with window 4096
+K2_SWA_MASK = {"causal+window4096": dict(causal=True, window=4096)}
 
 
 def k2_check(name, q, k, v, mask, *, bshd=False):
@@ -821,7 +864,7 @@ def k2_check(name, q, k, v, mask, *, bshd=False):
     one bf16 ulp of that element (an ulp is <= 2**-7 of the value).
     Returns (max abs error, worst error over its limit); a case out of
     bounds is printed and fails the run."""
-    kw = {**K2_MASKS, **K2_LOCAL_MASK}[mask]
+    kw = {**K2_MASKS, **K2_LOCAL_MASK, **K2_SWA_MASK}[mask]
     if bshd:       # model layout, passed as strided views
         out = k2_ops.flash_attention_bshd(q, k, v, **kw)
         ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -861,6 +904,15 @@ GEMMA3 = "gemma3_12b"
 GEMMA3_SEQS = (37, 511, 1500, 2048)
 GEMMA3_PROMPTS = (600, 1100, 1500, 2100)
 GEMMA3_MASKS = ("causal", "causal+window1024", "bidirectional")
+# mixtral-8x22b (phase 19): H=48, KH=8 (G = 6), D=128 from the registry,
+# causal and its window of 4096, S across the window; its prompts
+MIXTRAL = "mixtral_8x22b"
+MIXTRAL_PROMPTS = (1200, 2600, 4100, 4700)
+MIXTRAL_MASKS = ("causal", "causal+window4096")
+# phase 4's cases: S across the window, causal and windowed; at S = 8192
+# the windowed case alone (its plain version is the phase's costliest)
+MIXTRAL_CASES = (tuple(itertools.product((4100, 4700), MIXTRAL_MASKS))
+                 + ((8192, MIXTRAL_MASKS[1]),))
 
 
 def k2_checks():
@@ -870,10 +922,12 @@ def k2_checks():
     Sq != Sk both ways; strided (B,S,H,D) inputs, among them slices of one
     fused qkv tensor; gemma3's heads at D=256 (GEMMA3_SEQS x causal,
     window 1024 and bidirectional; window 100; Sq != Sk; phase 16's
-    prefill shapes); an empty q launches nothing.  Every bf16 launch goes
-    through the tensor-core kernel.  Prints one line per (dtype, D) group
-    and returns the largest abs error, the worst error over its limit of
-    each dtype and the number of D=256 cases."""
+    prefill shapes); mixtral's heads at G = 6, D=128 (MIXTRAL_CASES;
+    Sq != Sk; phase 19's longest prefill shape); an
+    empty q launches nothing.  Every bf16 launch goes through the
+    tensor-core kernel.  Prints one line per (dtype, D) group and returns
+    the largest abs error, the worst error over its limit of each dtype
+    and the number of cases in each of the groups "D=256" and "G=6"."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     groups = {}           # (dtype, D or case kind) -> [(err, worst, name)]
 
@@ -931,6 +985,24 @@ def k2_checks():
                        for x in k2_inputs(1, H, KH, S, S, D, dtype, gen))
             run(dt, "D=256", f"{dt} (B,S,H,D) phase 16 prefill S={S} "
                 f"H={H} KH={KH} D={D}", q, k, v, mask, bshd=True)
+        # mixtral's heads (G = 6 at D=128): S across its window of 4096
+        # (causal, and windowed: 4100 and 4700 drop the first keys of the
+        # last rows, 8192 half of them), Sq != Sk, and phase 19's longest
+        # prefill shape (B=1, windowed) in the model layout
+        H, KH, D = family_heads(MIXTRAL)
+        for S, mask in MIXTRAL_CASES:
+            q, k, v = k2_inputs(1, H, KH, S, S, D, dtype, gen)
+            run(dt, "G=6", f"{dt} B=1 H={H} KH={KH} S={S} D={D}",
+                q, k, v, mask)
+        for mask in MIXTRAL_MASKS:
+            q, k, v = k2_inputs(1, H, KH, 4700, 4100, D, dtype, gen)
+            run(dt, "G=6", f"{dt} B=1 H={H} KH={KH} Sq=4700 Sk=4100 "
+                f"D={D}", q, k, v, mask)
+        S = max(MIXTRAL_PROMPTS)
+        q, k, v = (x.transpose(1, 2).contiguous()
+                   for x in k2_inputs(1, H, KH, S, S, D, dtype, gen))
+        run(dt, "G=6", f"{dt} (B,S,H,D) phase 19 prefill S={S} H={H} "
+            f"KH={KH} D={D}", q, k, v, MIXTRAL_MASKS[1], bshd=True)
         for S, D, H, KH in ((511, 64, 15, 5), (300, 128, 8, 2),
                             (65, 16, 4, 2)):
             for mask in K2_MASKS:
@@ -968,8 +1040,8 @@ def k2_checks():
           f"tensor-core kernel ({n_bf16} launches); empty q (Sq=0): no "
           f"launch, none counted")
     err = max(e for rows in groups.values() for e, _, _ in rows)
-    return err, worst, sum(len(r) for (_, key), r in groups.items()
-                           if key == "D=256")
+    return err, worst, {g: sum(len(r) for (_, key), r in groups.items()
+                               if key == g) for g in ("D=256", "G=6")}
 
 
 K2_LSE_TOL = 1e-4       # log2 domain: the same fp32 sums in another order
@@ -1080,6 +1152,10 @@ K2_TIMING_SHAPES = {  # key -> (H, KH, S, D, window), B=1, causal, bf16
     # gemma3's global and local layers (H=16, KH=8, D=256)
     "gemma3_S4096": (16, 8, 4096, 256, 0),
     "gemma3_S4096_w1024": (16, 8, 4096, 256, 1024),
+    # mixtral's (H=48, KH=8, D=128: G = 6), causal, and its window of 4096
+    # at twice the window
+    "mixtral_S4096": (48, 8, 4096, 128, 0),
+    "mixtral_S8192_w4096": (48, 8, 8192, 128, 4096),
 }
 
 
@@ -1102,8 +1178,10 @@ def sdpa_call(q, k, v, window):
 def k2_timings():
     """K2 (the tensor-core kernel) at the dense serving shape (one
     511-token prompt), at S=4096, and at S=4096 with H=32, KH=8, D=128,
-    with starcoder2's H=36, KH=4, D=128 and with gemma3's H=16, KH=8,
-    D=256 (causal, and causal with its local window 1024), bf16; timed
+    with starcoder2's H=36, KH=4, D=128, with gemma3's H=16, KH=8,
+    D=256 (causal, and causal with its local window 1024) and with
+    mixtral's H=48, KH=8, D=128 (causal at S=4096, and its window of 4096
+    at S=8192), bf16; timed
     with CUDA events around each call (the host's launch included), in
     turns with its plain version and with ``scaled_dot_product_attention``
     (``sdpa_call``: the same function; timed only, the port never calls
@@ -3663,14 +3741,17 @@ def fan_in_scaled(params):
     ``init`` gives it, 1/sqrt(depth) (the reference's rule takes a leaf's
     first axis as its fan-in, and a stacked leaf's first axis is the
     depth), to 1/sqrt(its own fan-in): H x D for the attention output
-    projection, its second axis for every other matrix."""
-    def scale(name, t):
-        if t.dim() < 3:
+    projection, the axis after the expert axis for a MoE's expert stacks,
+    its second axis for every other matrix; the MoE router keeps its own
+    std (0.02, not depth's)."""
+    def scale(part, name, t):
+        if t.dim() < 3 or name == "router":
             return t
-        fan = t.shape[1] * t.shape[2] if name == "o" else t.shape[1]
+        fan = (t.shape[1] * t.shape[2] if name == "o"
+               else t.shape[2] if part == "moe" else t.shape[1])
         return t * math.sqrt(t.shape[0] / fan)
     return dict(params, super={
-        pos: {part: {n: scale(n, t) for n, t in leaves.items()}
+        pos: {part: {n: scale(part, n, t) for n, t in leaves.items()}
               for part, leaves in block.items()}
         for pos, block in params["super"].items()})
 
@@ -3765,9 +3846,9 @@ def windowed_layers(cfg):
     return sum(b.attn in ("local", "swa") for b in cfg.blocks)
 
 
-def check_gemma3_launches(cfg, prefills, what, k1_want=0):
+def check_prefill_launches(cfg, prefills, what, k1_want=0):
     """K2 launches == layers x prefills, all on the tensor cores, the
-    local layers' share with a window; K1 == ``k1_want``."""
+    windowed layers' share with a window; K1 == ``k1_want``."""
     want, want_w = cfg.num_layers * prefills, windowed_layers(cfg) * prefills
     require(k2.launches == want and k2.tc_launches == want and
             k2.window_launches == want_w and k1.launches == k1_want,
@@ -3803,7 +3884,7 @@ def gemma3_phase(seed, card):
     (k2n, _), tok_s, dt, tokens = dense_serving_phase(cfg, params, card,
                                                       GEMMA3_ARGV)
     n_req = len(GEMMA3_PROMPTS)
-    cluster = check_gemma3_launches(cfg, n_req, "dense cluster")
+    cluster = check_prefill_launches(cfg, n_req, "dense cluster")
     cluster_peak = peak_gib()
     print(f"  dense cluster: K2 launches {k2n} = {cfg.num_layers} layers x "
           f"{n_req} prefills, all tensor-core, "
@@ -3820,7 +3901,7 @@ def gemma3_phase(seed, card):
     eng, reqs, edt = _run_engine(cfg, params, args)
     check_requests(cfg, reqs, args.new_tokens)
     require(not eng.active.any(), "Engine: slots still active")
-    engine = check_gemma3_launches(cfg, n_req, "Engine")
+    engine = check_prefill_launches(cfg, n_req, "Engine")
     engine_peak = peak_gib()
     etoks = sum(len(r.output) for r in reqs)
     agree = sum(a == b for r, t in zip(reqs, tokens)
@@ -3913,7 +3994,7 @@ def gemma3_paged_phase(seed, card, dense_tokens):
             == cfg.num_layers * prefills,
             f"stage prefills {[e.prefills for e in engines]} for "
             f"{prefills} request prefills")
-    cluster = check_gemma3_launches(cfg, prefills, "paged cluster",
+    cluster = check_prefill_launches(cfg, prefills, "paged cluster",
                                     k1_expected(engines))
     cluster_peak = peak_gib()
     cluster_agree = agreeing_tokens(reqs)
@@ -3949,7 +4030,7 @@ def gemma3_paged_phase(seed, card, dense_tokens):
     check_requests(cfg, preqs, pargs.new_tokens)
     require(eng.pool.used == 0 and not eng.active.any(),
             f"PagedEngine: {eng.pool.used} pages held")
-    engine = check_gemma3_launches(cfg, eng.prefills, "PagedEngine",
+    engine = check_prefill_launches(cfg, eng.prefills, "PagedEngine",
                                    eng.decode_steps * n_paged)
     engine_peak = peak_gib()
     engine_agree = agreeing_tokens(preqs)
@@ -4235,6 +4316,189 @@ def gemma3_training_cross_check(seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: mixtral-8x22b at full width
+# ---------------------------------------------------------------------------
+
+# layers of mixtral's 56 that phase 19 serves: 8 hold 20.44 B params, 40.9
+# GB of bf16 weights (2.504 B a layer, 0.403 B in the embedding and the
+# head; PERF.md section 4 has the reckoning); drawing the last expert stack
+# holds its fp32 draw (25.8 GB) and bf16 copy beside the rest, ~67 GB
+MIXTRAL_LAYERS = 8
+MIXTRAL_XCHECK_LAYERS = 2
+_MIXTRAL_RUN = ["--batch", "4", "--prompt",
+                ",".join(map(str, MIXTRAL_PROMPTS)), "--new-tokens", "16",
+                "--max-len", "4720"]
+# the dense cluster (the MILP's 2-stage plan on A100,L4) and Engine:
+# prompts across the window of 4096, decode past the rings' ends
+MIXTRAL_ARGV = ["--arch", MIXTRAL, "--cluster", "A100,L4", "--stages", "2",
+                "--dense"] + _MIXTRAL_RUN
+MIXTRAL_ENGINE_ARGV = ["--arch", MIXTRAL] + _MIXTRAL_RUN
+# the f32 cross-check: 2 layers at full width, one 600-token prompt, on the
+# dense cluster
+MIXTRAL_XCHECK_ARGV = ["--arch", MIXTRAL, "--cluster", "A100,L4",
+                       "--stages", "2", "--dense", "--batch", "1", "--prompt",
+                       "600", "--new-tokens", "4", "--max-len", "608"]
+
+
+def moe_bound(cfg, moe, T, drop):
+    """Least time of one ``moe_apply`` over T tokens that dropped ``drop``
+    of their T x K rows: the bytes it must move (the router and expert
+    weights, x read and y written once) over HBM bandwidth vs the FLOPs of
+    the rows it keeps (the router's and three expert products each) over
+    bf16's peak; the larger bounds it.  Returns the bound, what bounds
+    it, the weights' bytes, x's and y's bytes, and the kept rows."""
+    d, ff, E, K = cfg.d_model, cfg.moe_d_ff, cfg.moe_num_experts, cfg.moe_top_k
+    kept = round(T * K * (1.0 - drop))
+    wbytes = sum(t.numel() * t.element_size() for t in moe.values())
+    xbytes = 2 * T * d * 2
+    flops = 2 * T * d * E + 6 * kept * d * ff
+    t_bytes = (wbytes + xbytes) / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), wbytes, xbytes, \
+        kept
+
+
+def moe_probe(cfg, params, prompt):
+    """``moe_apply`` at full width on layer 0: its input for ``prompt``
+    (the embedding through the first block's attention half and norm2)
+    gives the drop_frac at the config's capacity factor; CUDA-event times
+    there and at the decode shape (4 rows of that input, S = 1: drop-free
+    C = T), each beside ``moe_bound``; and the share of a whole-model
+    decode step at B = 4 (ring caches, the prompts' positions) that its
+    calls, one a layer, would take at that time."""
+    p = next(super_layers(cfg, params))
+    tokens = torch.as_tensor(np.asarray(prompt), device=DEVICE)[None]
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=DEVICE)[None]
+    with torch.no_grad():
+        h = _embed(cfg, params, tokens, pos)
+        out, _ = gqa_prefill(cfg, p["mix"], apply_norm(cfg, p["norm1"], h),
+                             pos, window=_window(cfg.blocks[0]))
+        x = apply_norm(cfg, p["norm2"], h + out)
+        xd = x[0, -4:, None]
+        drop = float(moe_apply(cfg, p["moe"], x)[1]["drop_frac"])
+        pre_ms = time_ms(lambda: moe_apply(cfg, p["moe"], x), reps=10,
+                         warmup=2)
+        dec_ms = time_ms(lambda: moe_apply(cfg, p["moe"], xd), reps=50,
+                         warmup=5)
+        caches = init_caches(cfg, 4, int(_MIXTRAL_RUN[-1]), device=DEVICE)
+        tok = tokens[0, -4:]
+        cpos = torch.tensor(MIXTRAL_PROMPTS, dtype=torch.int32,
+                            device=DEVICE)
+        step_ms = time_ms(lambda: decode_step(cfg, params, tok, caches,
+                                              cpos), reps=10, warmup=2)
+    del caches
+    E, K = cfg.moe_num_experts, cfg.moe_top_k
+    C = max(1, int(S * K / E * cfg.moe_capacity_factor))
+    pre_bound, pre_by, wbytes, pre_xbytes, kept = moe_bound(
+        cfg, p["moe"], S, drop)
+    dec_bound, dec_by, _, dec_xbytes, _ = moe_bound(cfg, p["moe"], 4, 0.0)
+    share = cfg.num_layers * dec_ms / step_ms
+    print(f"  moe_apply, layer 0, the {S}-token prompt (capacity factor "
+          f"{cfg.moe_capacity_factor}, C = {C} of {E} x {C} slots for "
+          f"{S * K} rows): drop_frac {drop:.6f} ({kept} rows kept); "
+          f"{pre_ms:.4f} ms, bound {pre_bound:.4f} ms ({pre_by}; "
+          f"{wbytes / 1e9:.3f} GB of router and expert weights, "
+          f"{pre_xbytes / 1e6:.1f} MB of x and y)")
+    print(f"  moe_apply at the decode shape (T = 4, S = 1, drop-free): "
+          f"{dec_ms:.4f} ms, bound {dec_bound:.4f} ms ({dec_by}; "
+          f"{wbytes / 1e9:.3f} GB of weights, {dec_xbytes / 1e3:.1f} kB of "
+          f"x and y); a whole-model decode step at B = 4 {step_ms:.4f} ms; "
+          f"{cfg.num_layers} x that moe_apply time would be "
+          f"{100 * share:.1f}% of it (an estimate from the two standalone "
+          "timings, not a profile of the step)", flush=True)
+    return dict(prompt=S, capacity=C, drop_frac=drop, kept_rows=kept,
+                prefill_ms=pre_ms, prefill_bound_ms=pre_bound,
+                prefill_bound_by=pre_by, decode_ms=dec_ms,
+                decode_bound_ms=dec_bound, decode_bound_by=dec_by,
+                weight_bytes=wbytes, prefill_xy_bytes=pre_xbytes,
+                decode_step_ms=step_ms, decode_step_share_est=share)
+
+
+def mixtral_phase(seed, card):
+    """mixtral-8x22b at full width in bf16, MIXTRAL_LAYERS of its 56 layers
+    (d=6144, 48/8 heads, D=128, 8 experts top-2 of d_ff 16384, window
+    4096; weights drawn once on the card): ``launch/serve.py --dense``'s
+    cluster (phase 5's dense checks) and ``Engine``, each with exact
+    launch counts (K2 == layers x 4 prefills, all tensor-core and all
+    windowed; K1 none), tokens/s, peak memory and wall time; then
+    ``moe_probe``.  Returns the counts, rates and measurements."""
+    t_phase = time.perf_counter()
+    cfg = family_config(MIXTRAL, MIXTRAL_LAYERS)
+    full = get_config(MIXTRAL)
+    print(f"  {cfg.name}: {cfg.num_layers}L (cut from {full.num_layers}) "
+          f"d={cfg.d_model} H={cfg.num_heads}/KH={cfg.num_kv_heads} "
+          f"D={cfg.resolved_head_dim} {cfg.moe_num_experts} experts top-"
+          f"{cfg.moe_top_k} d_ff={cfg.moe_d_ff} vocab={cfg.vocab_size}, "
+          f"window {max(b.window for b in cfg.blocks)} in every layer, "
+          f"capacity factor {cfg.moe_capacity_factor}, {cfg.param_dtype}; "
+          f"{cfg.param_count() / 1e9:.3f} B params ({full.num_layers} "
+          f"layers: {full.param_count() / 1e9:.1f} B)", flush=True)
+    release_device_memory()
+    reset_peak()
+    t0 = time.perf_counter()
+    params = family_params(cfg, seed)
+    sync()
+    draw_peak = peak_gib()
+    print(f"  {param_bytes(params) / 1e9:.2f} GB of weights drawn on the "
+          f"card in {time.perf_counter() - t0:.2f} s (peak {draw_peak:.2f} "
+          "GiB while drawing)", flush=True)
+    reset_peak()
+    (k2n, _), tok_s, dt, tokens = dense_serving_phase(cfg, params, card,
+                                                      MIXTRAL_ARGV)
+    n_req = len(MIXTRAL_PROMPTS)
+    cluster = check_prefill_launches(cfg, n_req, "dense cluster")
+    cluster_peak = peak_gib()
+    print(f"  dense cluster: K2 launches {k2n} = {cfg.num_layers} layers x "
+          f"{n_req} prefills, all tensor-core, {cluster['k2_window']} with "
+          f"window {max(b.window for b in cfg.blocks)}; K1 0; {tok_s:.2f} "
+          f"tokens/s in {dt:.3f} s; peak "
+          f"device memory {cluster_peak:.2f} GiB", flush=True)
+
+    args = serve.parse_args(MIXTRAL_ENGINE_ARGV + ["--device", DEVICE])
+    _run_engine(cfg, params, serve.parse_args(
+        MIXTRAL_ENGINE_ARGV + ["--device", DEVICE, "--new-tokens", "2"]))
+    release_device_memory()
+    reset_peak()
+    zero_counts()
+    eng, reqs, edt = _run_engine(cfg, params, args)
+    check_requests(cfg, reqs, args.new_tokens)
+    require(not eng.active.any(), "Engine: slots still active")
+    engine = check_prefill_launches(cfg, n_req, "Engine")
+    engine_peak = peak_gib()
+    etoks = sum(len(r.output) for r in reqs)
+    agree = sum(a == b for r, t in zip(reqs, tokens)
+                for a, b in zip(r.output, t))
+    print(f"  Engine: {len(reqs)} requests, {etoks} tokens in {edt:.3f} s = "
+          f"{etoks / edt:.2f} tokens/s; K2 launches {engine['k2']} = "
+          f"{cfg.num_layers} x {eng.prefills} prefills, all tensor-core, "
+          f"{engine['k2_window']} windowed; K1 0; peak device memory "
+          f"{engine_peak:.2f} GiB; tokens agreeing with the dense cluster's "
+          f"(bf16, other batch shapes): {agree} of {etoks}", flush=True)
+    moe = moe_probe(cfg, params, reqs[-1].prompt)
+    del params, eng
+    release_device_memory()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 19 (bf16 runs) wall time {wall:.2f} s", flush=True)
+    return dict(layers=cfg.num_layers, cluster=cluster, engine=engine,
+                dense_tokens_per_s=tok_s, dense_s=dt,
+                engine_tokens_per_s=etoks / edt, engine_s=edt,
+                draw_peak_gib=draw_peak, cluster_peak_gib=cluster_peak,
+                engine_peak_gib=engine_peak, engine_agree=agree,
+                engine_tokens=etoks, moe=moe, wall_s=wall)
+
+
+def mixtral_cross_check(seed):
+    """mixtral-8x22b at full width and MIXTRAL_XCHECK_LAYERS layers in
+    f32 (5.41 B params, 21.6 GB on each side), the dense cluster on cuda
+    and on the CPU on a 600-token prompt, under phase 15's two gates."""
+    return family_cross_check(
+        family_config(MIXTRAL, MIXTRAL_XCHECK_LAYERS, "float32"),
+        MIXTRAL_XCHECK_ARGV, seed)
+
+
+# ---------------------------------------------------------------------------
 
 def _kernel_name(mangled):
     """``..._25flash_attention_tc_kernelILi64EEEv...`` ->
@@ -4362,8 +4626,11 @@ def main() -> int:
     k1_err, k1_worst = kernel_checks()
 
     phase("kernel K2: flash_attention vs plain")
-    k2_err, k2_worst, k2_d256_cases = k2_checks()
+    k2_err, k2_worst, k2_groups = k2_checks()
     k2_lse_err = k2_lse_checks()
+    # the plain versions at mixtral's S = 8192 held ~50 GB: hand it back
+    # to the card before phase 13's worker processes ask for theirs
+    release_device_memory()
 
     args = serve.parse_args(SERVE_ARGV + ["--device", DEVICE])
     cfg = serve.build_config(args)
@@ -4408,6 +4675,7 @@ def main() -> int:
     phase("kernel timings")
     t1 = kernel_timings(pool_pages)
     t2 = k2_timings()
+    release_device_memory()
 
     phase("training: K2's backward vs plain")
     t0 = time.perf_counter()
@@ -4484,8 +4752,23 @@ def main() -> int:
     gemma3_paged["xcheck"] = gemma3_paged_cross_check(args.seed)
     print(f"  phase 18 took {time.perf_counter() - t0:.2f} s")
 
+    phase(f"mixtral-8x22b at full width, {MIXTRAL_LAYERS} of its 56 layers: "
+          "routed MoE (8 experts top-2), K2 at G = 6, D = 128, window "
+          "4096; dense cluster and Engine")
+    t0 = time.perf_counter()
+    release_device_memory()
+    mixtral = mixtral_phase(args.seed, card)
+    phase(f"cross-check f32, {MIXTRAL_XCHECK_LAYERS} layers at full width: "
+          "mixtral's dense cluster, cuda vs cpu")
+    mixtral["xcheck"] = mixtral_cross_check(args.seed)
+    print(f"  phase 19 took {time.perf_counter() - t0:.2f} s")
+
     print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
           f"{dense_tok_s:.2f} tokens/s on {card}")
+    secs = phase_seconds()
+    print(f"phases on the host clock ({sum(t for _, t in secs):.1f} s):")
+    for name, t in secs:
+        print(f"  {t:8.1f} s  {name}")
     main1, main2 = t1["decode"], t2["S511"]
     k1_shapes = {key: t1[key] for key in t1 if key != "decode"}
     # K1: no single PyTorch call computes paged attention (the gather
@@ -4511,6 +4794,8 @@ def main() -> int:
          "families_launches": {k: v["k1"] for k, v in families.items()},
          "gemma3_paged_launches": {
              k: gemma3_paged[k]["k1"] for k in ("cluster", "engine")},
+         "mixtral_launches": {
+             k: mixtral[k]["k1"] for k in ("cluster", "engine")},
          "max_abs_err": k1_err, "worst_err_over_limit": k1_worst,
          "ms": main1["ms"], "plain_ms": main1["plain_ms"],
          "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
@@ -4542,7 +4827,10 @@ def main() -> int:
          "gemma3_train_launches": {
              key: gemma3_train["launches"][key]
              for key in ("k2", "k2_window")},
-         "d256_cases": k2_d256_cases,
+         "mixtral_launches": {
+             k: {key: mixtral[k][key] for key in ("k2", "k2_tc", "k2_window")}
+             for k in ("cluster", "engine")},
+         "d256_cases": k2_groups["D=256"], "g6_cases": k2_groups["G=6"],
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "lse_max_abs_err": k2_lse_err,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
@@ -4552,7 +4840,9 @@ def main() -> int:
          "S4096": t2["S4096"], "D128_S4096": t2["D128_S4096"],
          "starcoder2_S4096": t2["starcoder2_S4096"],
          "gemma3_S4096": t2["gemma3_S4096"],
-         "gemma3_S4096_w1024": t2["gemma3_S4096_w1024"]},
+         "gemma3_S4096_w1024": t2["gemma3_S4096_w1024"],
+         "mixtral_S4096": t2["mixtral_S4096"],
+         "mixtral_S8192_w4096": t2["mixtral_S8192_w4096"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/models/attention.py:63 (no Pallas kernel: "
@@ -4577,7 +4867,8 @@ def main() -> int:
                            else val)
                      for key, val in train.items() if key != "launches"},
         "families": families, "gemma3": gemma3,
-        "gemma3_training": gemma3_train, "gemma3_paged": gemma3_paged}
+        "gemma3_training": gemma3_train, "gemma3_paged": gemma3_paged,
+        "mixtral": mixtral, "phase_seconds": secs}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 ``get_smoke_config``.
 
 A copy of ``repro.configs`` restricted to the architectures the PyTorch port
-carries (GQA decoders with a dense FFN, their attention full, local or
-sliding-window: gemma3's stack of five local layers to each global one
-among them).  Each module exports ``CONFIG`` (the full published config)
-and ``SMOKE`` (a reduced same-family config for CPU tests).
+carries (GQA decoders with a dense FFN or a routed MoE, their attention
+full, local or sliding-window: gemma3's stack of five local layers to each
+global one, and mixtral's sliding-window MoE layers, among them).  Each
+module exports ``CONFIG`` (the full published config) and ``SMOKE`` (a
+reduced same-family config for CPU tests).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ ARCH_IDS = [
     "starcoder2_7b",
     "chameleon_34b",
     "gemma3_12b",
+    "mixtral_8x22b",
 ]
 
 

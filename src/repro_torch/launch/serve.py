@@ -7,7 +7,10 @@ paged stage engines by default or dense ones with ``--dense``.  Every
 node's engine lives on the one device (``--device``, CUDA by default), as
 the reference plays every node in one process.  ``--arch`` names any arch
 of the port's registry: ``smollm_360m``, ``olmo_1b``, ``starcoder2_7b``,
-``chameleon_34b`` or ``gemma3_12b``.  gemma3's stack mixes windowed and
+``chameleon_34b``, ``gemma3_12b`` or ``mixtral_8x22b``.  mixtral's layers
+are all windowed MoE blocks: it has no paged layer, so ``--paged`` refuses
+it and ``--cluster`` gives every node a dense stage engine, as the
+reference's driver does.  gemma3's stack mixes windowed and
 global layers: on the paged paths (``--paged``, and ``--cluster`` without
 ``--dense``) its global layers page their K/V while the windowed ones keep
 dense ring caches, and every prompt prefills single-shot (one pass of the
@@ -97,7 +100,9 @@ def build_config(args, arch: Optional[str] = None):
 
 def make_plan(cfg, args):
     """MILP placement of ``cfg`` over the ``--cluster`` devices, VRAM
-    derated so the model splits into at least ``--stages`` stages."""
+    derated so the model splits into at least ``--stages`` stages.  As in
+    the reference's driver, the profile gives a MoE layer no experts: the
+    MILP reckons its FFN as one dense SwiGLU of ``d_ff``."""
     profile = ModelProfile.from_dims(
         cfg.name, cfg.num_layers, cfg.d_model, max(cfg.d_ff, 1),
         cfg.vocab_size, cfg.num_kv_heads, cfg.resolved_head_dim,

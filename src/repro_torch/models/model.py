@@ -11,11 +11,11 @@ becomes a Python loop over that axis.  Every prefill attention goes through
 
 The port carries decoders whose every block is GQA attention (MHA
 included), full, local or sliding-window (dense caches of a windowed block
-are rings of ``window`` slots), with a dense FFN: RMSNorm, LayerNorm or
-the non-parametric LayerNorm; SwiGLU or the plain GELU FFN; tied or untied
-embeddings (smollm, olmo, starcoder2, chameleon, gemma3).  MoE, MLA or SSM
-blocks and encoder-decoders are not ported yet and raise in
-``check_ported``.
+are rings of ``window`` slots), with a dense FFN or a routed MoE:
+RMSNorm, LayerNorm or the non-parametric LayerNorm; SwiGLU or the plain
+GELU FFN; tied or untied embeddings (smollm, olmo, starcoder2, chameleon,
+gemma3, mixtral).  MLA or SSM blocks and encoder-decoders are not ported
+yet and raise in ``check_ported``.
 """
 from __future__ import annotations
 
@@ -29,24 +29,23 @@ from ..configs.base import BlockSpec, ModelConfig
 from .attention import attn_spec, gqa_cache_init, gqa_decode, gqa_prefill
 from .common import (ParamSpec, apply_norm, init_params, map_tree,
                      norm_spec, resolve_device, torch_dtype)
-from .moe import ffn_apply, ffn_spec
+from .moe import ffn_apply, ffn_spec, moe_apply, moe_spec
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is in the families the port carries: every
-    block GQA attention, full, local or sliding-window, with a dense FFN,
-    decoder-only (any norm the reference has, either FFN, tied or untied
-    embeddings)."""
+    block GQA attention, full, local or sliding-window, with a dense FFN
+    or a routed MoE, decoder-only (any norm the reference has, either
+    FFN, tied or untied embeddings)."""
     bad = [b for b in cfg.blocks
-           if b.kind != "attn" or b.attn not in ("full", "local", "swa")
-           or b.moe]
+           if b.kind != "attn" or b.attn not in ("full", "local", "swa")]
     if (bad or cfg.mla_kv_lora_rank or cfg.is_encoder_decoder
             or cfg.d_ff <= 0):
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA or SSM blocks and encoder-decoders are "
-            "not ported yet; the port carries GQA decoders (full, local or "
-            "sliding-window attention) with a dense FFN (ROADMAP queue 1 "
-            "item 7)")
+            f"{cfg.name}: MLA or SSM blocks and encoder-decoders are not "
+            "ported yet; the port carries GQA decoders (full, local or "
+            "sliding-window attention) with a dense FFN or a routed MoE "
+            "(ROADMAP queue 1 item 7)")
 
 
 # ---------------------------------------------------------------------------
@@ -55,7 +54,8 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def _block_spec(cfg: ModelConfig, b: BlockSpec) -> Dict:
     return {"norm1": norm_spec(cfg), "mix": attn_spec(cfg),
-            "norm2": norm_spec(cfg), "ffn": ffn_spec(cfg)}
+            "norm2": norm_spec(cfg),
+            **({"moe": moe_spec(cfg)} if b.moe else {"ffn": ffn_spec(cfg)})}
 
 
 def _stack_specs(tree, n: int):
@@ -135,16 +135,26 @@ def _window(b: BlockSpec) -> int:
     return b.window if b.attn in ("swa", "local") else 0
 
 
+def _mlp(cfg, p, h):
+    """The block's FFN half: h + FFN(norm2(h)), the routed MoE for a MoE
+    block.  Returns (h, the MoE's aux dict or None)."""
+    hn = apply_norm(cfg, p["norm2"], h)
+    if "moe" in p:
+        out, aux = moe_apply(cfg, p["moe"], hn)
+        return h + out, aux
+    return h + ffn_apply(p["ffn"], hn), None
+
+
 def _apply_block(cfg, b: BlockSpec, p, h, positions, collect_cache=False):
-    """One block over a whole sequence.  Returns (h, cache): the block's
-    roped (k, v) when ``collect_cache``, else None.  (The reference also
-    returns a MoE aux loss, which is 0 for this family.)"""
+    """One block over a whole sequence.  Returns (h, cache, aux): the
+    block's roped (k, v) when ``collect_cache``, else None, and its MoE
+    load-balance loss (f32 0 for a dense FFN)."""
     hn = apply_norm(cfg, p["norm1"], h)
     out, cache = gqa_prefill(cfg, p["mix"], hn, positions, window=_window(b))
-    h = h + out
-    hn = apply_norm(cfg, p["norm2"], h)
-    h = h + ffn_apply(p["ffn"], hn)
-    return h, (cache if collect_cache else None)
+    h, moe_aux = _mlp(cfg, p, h + out)
+    aux = (moe_aux["aux_loss"] if moe_aux is not None
+           else torch.zeros((), dtype=torch.float32, device=h.device))
+    return h, (cache if collect_cache else None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +183,8 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _block_out(cfg, b, p, h, positions):
-    return _apply_block(cfg, b, p, h, positions)[0]
+    h, _, aux = _apply_block(cfg, b, p, h, positions)
+    return h, aux
 
 
 def _run_block(cfg, b, p, h, positions, remat: str):
@@ -191,21 +202,24 @@ def _run_block(cfg, b, p, h, positions, remat: str):
 
 
 def _forward(cfg: ModelConfig, params, tokens: torch.Tensor,
-             remat: str = "none") -> torch.Tensor:
+             remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits (B,S,V), the MoE aux loss summed over the blocks)."""
     check_ported(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     h = _embed(cfg, params, tokens, positions)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for b, p in _blocks(cfg, params):
-        h = _run_block(cfg, b, p, h, positions, remat)
+        h, aux = _run_block(cfg, b, p, h, positions, remat)
+        aux_total = aux_total + aux
     h = apply_norm(cfg, params["final_norm"], h)
-    return _logits(cfg, params, h)
+    return _logits(cfg, params, h), aux_total
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B,S) int -> logits (B,S,V).  (The reference also returns a
-    MoE aux loss, which is 0 for this family.)"""
-    return _forward(cfg, params, tokens)
+    """tokens: (B,S) int -> logits (B,S,V).  (The reference also returns
+    the MoE aux loss summed over the blocks; ``loss_fn`` reads it.)"""
+    return _forward(cfg, params, tokens)[0]
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
@@ -213,12 +227,13 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             remat: str = "none") -> Tuple[torch.Tensor, Dict]:
     """batch: tokens (B,S), labels (B,S) with -100 = ignore.  Mean
     cross-entropy over the labelled tokens, from an fp32 log-softmax of the
-    logits.  Returns (loss, {"ce", "aux", "tokens"}); ``aux`` (the MoE
-    load-balance loss) is 0 for this family.  ``skip_masked_chunks`` is
+    logits, plus ``aux_weight`` x ``aux``, the MoE load-balance loss
+    summed over the blocks (0 without MoE blocks).  Returns (loss, {"ce",
+    "aux", "tokens"}).  ``skip_masked_chunks`` is
     accepted and unused, as in ``chunked_attention`` (K2 skips masked
     tiles by itself); ``remat`` ("none", "full", "dots") sets what each
     block keeps for backward, not the numbers."""
-    logits = _forward(cfg, params, batch["tokens"], remat)
+    logits, aux = _forward(cfg, params, batch["tokens"], remat)
     labels = batch["labels"].long()
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels))
@@ -227,7 +242,6 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     denom = valid.sum().clamp_min(1)
     ce = torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux_weight * aux
     return loss, {"ce": ce, "aux": aux, "tokens": denom.float()}
 
@@ -283,9 +297,7 @@ def _apply_block_decode(cfg, b: BlockSpec, p, h, cache, cache_pos,
     hn = apply_norm(cfg, p["norm1"], h)
     out, cache = gqa_decode(cfg, p["mix"], hn, cache, cache_pos,
                             window=_window(b), rows=rows)
-    h = h + out
-    hn = apply_norm(cfg, p["norm2"], h)
-    return h + ffn_apply(p["ffn"], hn), cache
+    return _mlp(cfg, p, h + out)[0], cache
 
 
 def decode_step(cfg: ModelConfig, params, tokens, caches, cache_pos):
@@ -340,7 +352,8 @@ def prefill(cfg: ModelConfig, params, tokens, *,
     dtype = h.dtype
     per_layer = []
     for b, p in _blocks(cfg, params):
-        h, raw = _apply_block(cfg, b, p, h, positions, collect_cache=True)
+        h, raw, _ = _apply_block(cfg, b, p, h, positions,
+                                 collect_cache=True)
         per_layer.append(fill_prefill_cache(cfg, b, raw, B, S, max_len,
                                             dtype))
     n_pro = len(cfg.prologue)

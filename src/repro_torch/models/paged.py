@@ -28,8 +28,8 @@ from ..configs.base import BlockSpec, ModelConfig
 from .attention import gqa_decode_paged, gqa_prefill_paged
 from .common import apply_norm, map_tree, resolve_device, torch_dtype
 from .model import (_apply_block_decode, _cache_init_for_block, _embed,
-                    _logits, check_ported, stacked_caches, super_layers)
-from .moe import ffn_apply
+                    _logits, _mlp, check_ported, stacked_caches,
+                    super_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -77,16 +77,11 @@ def init_caches_paged(cfg: ModelConfig, batch: int, max_len: int, *,
 # Block application
 # ---------------------------------------------------------------------------
 
-def _mlp(cfg, p, h):
-    hn = apply_norm(cfg, p["norm2"], h)
-    return h + ffn_apply(p["ffn"], hn)
-
-
 def _block_decode_paged(cfg, p, h, kp, vp, table, cache_pos):
     hn = apply_norm(cfg, p["norm1"], h)
     out, kp, vp = gqa_decode_paged(cfg, p["mix"], hn, kp, vp, table,
                                    cache_pos)
-    return _mlp(cfg, p, h + out), kp, vp
+    return _mlp(cfg, p, h + out)[0], kp, vp
 
 
 def _block_prefill_paged(cfg, p, h, kp, vp, table, positions,
@@ -94,7 +89,7 @@ def _block_prefill_paged(cfg, p, h, kp, vp, table, positions,
     hn = apply_norm(cfg, p["norm1"], h)
     out, kp, vp = gqa_prefill_paged(cfg, p["mix"], hn, kp, vp, table,
                                     positions, active_blocks=active_blocks)
-    return _mlp(cfg, p, h + out), kp, vp
+    return _mlp(cfg, p, h + out)[0], kp, vp
 
 
 def _layers(cfg, params, caches, tables_pro, tables_super):

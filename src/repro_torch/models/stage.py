@@ -127,7 +127,8 @@ def stage_prefill(cfg: ModelConfig, sparams, layers: LayerRange, x,
             caches.append(_cache_init_for_block(cfg, b, B, max_len, dt,
                                                 device=dev))
             continue
-        h, raw = _apply_block(cfg, b, p, h, positions, collect_cache=True)
+        h, raw, _ = _apply_block(cfg, b, p, h, positions,
+                                 collect_cache=True)
         caches.append(fill_prefill_cache(cfg, b, raw, B, S, max_len, dt))
     if layers.end == cfg.num_layers:
         h = apply_norm(cfg, sparams["final_norm"], h)

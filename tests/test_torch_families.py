@@ -132,8 +132,11 @@ def _serve_tokens(eng, prompts):
 
 @pytest.mark.parametrize("kind", list(UNPORTED))
 def test_unported_blocks_still_raise(kind):
-    """MoE, MLA, SSM blocks and encoder-decoders raise in ``param_specs``.
-    Windowed GQA is ported on the dense and the paged paths: a stack of
+    """MLA, SSM blocks and encoder-decoders raise in ``param_specs``.  MoE
+    blocks are ported: their specs are the reference's (the router and
+    the stacked experts in place of the dense FFN; ``tests/
+    test_torch_mixtral.py`` holds the rest).  Windowed GQA is ported on
+    the dense and the paged paths: a stack of
     windowed blocks only has nothing to page, so ``PagedEngine`` refuses
     it as the reference's does and the paged ``ClusterRuntime`` gives
     every node a dense engine; with full-attention blocks beside the
@@ -142,6 +145,14 @@ def test_unported_blocks_still_raise(kind):
     filling the 16-slot rings)."""
     cfg = dataclasses.replace(get_smoke_config("starcoder2_7b"),
                               **UNPORTED[kind])
+    if kind == "moe":
+        cfg = dataclasses.replace(cfg, moe_num_experts=4, moe_top_k=2)
+        block = tmodel.param_specs(cfg)["super"]["pos0"]
+        jblock = jmodel.param_specs(cfg)["super"]["pos0"]
+        assert "ffn" not in block and sorted(block) == sorted(jblock)
+        assert {k: s.shape for k, s in block["moe"].items()} == \
+            {k: s.shape for k, s in jblock["moe"].items()}
+        return
     if kind != "windowed":
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             tmodel.param_specs(cfg)
