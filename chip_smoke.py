@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
                 off for matmuls and convolutions; the CPU's runs flush
                 denormals to 0.
   2. build    — compiles the three kernel sources (paged_attention.cu,
-                K1; flash_attention.cu, K2, D 16/64/128/256, the D=256
+                K1; flash_attention.cu, K2, (D, DV) = (16, 16), (64, 64),
+                (128, 128), (256, 256) and MLA's (192, 128), the D=256
                 tensor-core instance two warpgroups without a producer;
                 flash_attention_bwd.cu, K2's backward: delta, and dK/dV
                 and dQ on the tensor cores for bf16 or the CUDA cores for
@@ -17,8 +18,8 @@ Phases (any failure raises and the script exits non-zero):
                 from ``src/repro_torch/csrc``,
                 the three builds started together; prints each instance's
                 registers, shared memory and spills (-Xptxas -v); an
-                instance that spills, or a missing D=256 forward instance,
-                fails the run.
+                instance that spills, or a missing D=256 or (192, 128)
+                forward instance, fails the run.
   3. K1       — paged decode attention (split-K) against its plain PyTorch
                 version on the card, f32 / bf16 / int8 + scales with f32 or
                 bf16 q: smoke and full smollm shapes with ragged lengths (1,
@@ -62,7 +63,11 @@ Phases (any failure raises and the script exits non-zero):
                 x causal and causal + window 4096, S = 8192 with window
                 4096, Sq = 4700 / Sk = 4100, and phase 19's longest
                 prefill (S = 4700, window 4096) as a (B,S,H,D) view;
-                Sq != Sk both
+                deepseek-v2's MLA instance (D = 192, DV = 128, H=KH=128,
+                phase 20): causal S in {511, 4100}, Sq = 300 / Sk =
+                1100, and phase 20's longest prefill (S = 2100) as
+                (B,S,H,D) views with v a slice of a wider tensor (MLA's
+                k_up[..., nope:]); Sq != Sk both
                 ways; strided (B,S,H,D) views; an empty q launches
                 nothing.  f32 (CUDA-core kernel): max error <= 1e-5; bf16
                 (tensor-core kernel, every bf16 case counted through it):
@@ -101,8 +106,9 @@ Phases (any failure raises and the script exits non-zero):
                 tensor-core kernel) and ``PagedEngine`` (``--paged``; K1
                 launches == 32 x decode steps; its split launches printed)
                 at full width.
-  8. profile  — both cluster runs again under ``torch.profiler``: device
-                busy time against the unprofiled wall time, top kernels.
+  8. profile  — both cluster runs again under ``torch.profiler`` (CUDA
+                activity only): device busy time against the unprofiled
+                wall time, top kernels.
   9. timings  — CUDA events around each call (the host's launch
                 included): K1 at the serving decode shape, at B=32, L=2048
                 on bf16 and on int8 pages and at B=1, L=32768, and at
@@ -117,13 +123,17 @@ Phases (any failure raises and the script exits non-zero):
                 D=128 at S=4096, gemma3's H=16, KH=8, D=256 at S=4096,
                 causal and with window 1024, and mixtral's H=48, KH=8,
                 D=128 at S=4096 causal and at S=8192 with window 4096
-                (bounds 0.2085 and 0.6254 ms), in turns with its
+                (bounds 0.2085 and 0.6254 ms), and deepseek-v2's MLA
+                instance (H=KH=128, D=192, DV=128) at S=4096 causal
+                (bound 0.695 ms; SDPA through the backends that take a
+                value dim unlike the query dim, each named, or null with
+                the refusals), in turns with its
                 plain version and ``scaled_dot_product_attention`` (the
                 same function; with a window through a dense boolean mask
                 on repeated K/V, its only route), then both again as 20
                 calls in a CUDA graph (no host launch in the time), with
-                TFLOP/s and the share of its bound (4*D FLOPs per visible
-                pair and query head).  The port never calls SDPA.
+                TFLOP/s and the share of its bound (2*(D+DV) FLOPs per
+                visible pair and query head).  The port never calls SDPA.
   10. cross-checks, f32 — the paged cluster at full depth on cuda and on
                 the CPU (plain versions), same weights: first-prefill and
                 first-decode logits allclose at atol=rtol=1e-3, tokens
@@ -354,6 +364,24 @@ Phases (any failure raises and the script exits non-zero):
                 decode step printed.  Then 2 layers in f32 at full width,
                 the dense cluster on cuda and on the CPU on a 600-token
                 prompt, under phase 15's two gates.
+  20. deepseek-v2-236b — runs last, after collecting phase 19's garbage.
+                Full width (d=5120, 128 heads with MLA: q_lora 1536,
+                kv_lora 512, nope 128 / rope 64, v 128; 160 experts top-6
+                of d_ff 1536 and 2 shared experts; vocab 102,400, untied)
+                at 5 of its 60 layers, the dense prologue layer and 4 MoE
+                repeats, in bf16 (34.55 GB of weights drawn on the card;
+                60 layers are 235.7 B params) through ``launch/serve.py
+                --cluster A100,L4 --stages 2 --dense`` (phase 5's dense
+                checks) and ``Engine``, prompts of 600, 1100, 1500 and
+                2100 tokens, 16 new tokens each: K2 launches == 5 x 4 =
+                20, all tensor-core at (D, DV) = (192, 128), none
+                windowed, K1 none, in each; tokens/s, peak memory while
+                drawing and serving, the MLA cache's bytes a token (5 x
+                1,152) and the first MoE layer's ``moe_apply`` on the
+                2100-token prompt and at the decode shape beside its
+                bounds printed.  Then the prologue and one MoE layer in
+                f32 at full width, the dense cluster on cuda and on the
+                CPU on a 600-token prompt, under phase 15's two gates.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero at once.
 """
@@ -402,12 +430,13 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.worker import run_worker  # noqa: E402
 from repro_torch.models import init  # noqa: E402
-from repro_torch.models.attention import gqa_prefill  # noqa: E402
+from repro_torch.models.attention import (gqa_prefill,  # noqa: E402
+                                          mla_cache_init, mla_prefill)
 from repro_torch.models.common import (apply_norm, map_tree,  # noqa: E402
                                        tree_leaves)
-from repro_torch.models.model import (_embed, _window,  # noqa: E402
-                                      decode_step, init_caches, loss_fn,
-                                      super_layers)
+from repro_torch.models.model import (_apply_block, _blocks,  # noqa: E402
+                                      _embed, _window, decode_step,
+                                      init_caches, loss_fn)
 from repro_torch.models.moe import moe_apply  # noqa: E402
 from repro_torch.models.paged import num_paged_layers  # noqa: E402
 from repro_torch.serving.autoscaler import Autoscaler  # noqa: E402
@@ -889,10 +918,11 @@ def k2_check(name, q, k, v, mask, *, bshd=False):
     return err, worst
 
 
-def k2_inputs(B, H, KH, Sq, Sk, D, dtype, gen):
+def k2_inputs(B, H, KH, Sq, Sk, D, dtype, gen, DV=None):
     q = torch.randn(B, H, Sq, D, generator=gen, device=DEVICE).to(dtype)
     k = torch.randn(B, KH, Sk, D, generator=gen, device=DEVICE).to(dtype)
-    v = torch.randn(B, KH, Sk, D, generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn(B, KH, Sk, DV or D, generator=gen,
+                    device=DEVICE).to(dtype)
     return q, k, v
 
 
@@ -913,6 +943,18 @@ MIXTRAL_MASKS = ("causal", "causal+window4096")
 # the windowed case alone (its plain version is the phase's costliest)
 MIXTRAL_CASES = (tuple(itertools.product((4100, 4700), MIXTRAL_MASKS))
                  + ((8192, MIXTRAL_MASKS[1]),))
+# deepseek-v2-236b (phase 20): MLA's q/k of nope 128 + rope 64 against v
+# of 128, H = KH = 128 (every head its own latent key), causal; its prompts
+DEEPSEEK = "deepseek_v2_236b"
+DEEPSEEK_PROMPTS = (600, 1100, 1500, 2100)
+
+
+def mla_dims(arch):
+    """(H, KH, D, DV) of an MLA config's prefill attention: D = nope +
+    rope, DV = v_dim."""
+    cfg = get_config(arch)
+    return (cfg.num_heads, cfg.num_heads,
+            cfg.mla_qk_nope_dim + cfg.mla_qk_rope_dim, cfg.mla_v_dim)
 
 
 def k2_checks():
@@ -923,11 +965,15 @@ def k2_checks():
     fused qkv tensor; gemma3's heads at D=256 (GEMMA3_SEQS x causal,
     window 1024 and bidirectional; window 100; Sq != Sk; phase 16's
     prefill shapes); mixtral's heads at G = 6, D=128 (MIXTRAL_CASES;
-    Sq != Sk; phase 19's longest prefill shape); an
+    Sq != Sk; phase 19's longest prefill shape); deepseek's MLA instance
+    (D=192, DV=128, H=KH=128: causal S 511 and 4100, Sq=300 / Sk=1100,
+    phase 20's longest prefill in the model layout, v a slice of a wider
+    tensor); an
     empty q launches nothing.  Every bf16 launch goes through the
     tensor-core kernel.  Prints one line per (dtype, D) group and returns
     the largest abs error, the worst error over its limit of each dtype
-    and the number of cases in each of the groups "D=256" and "G=6"."""
+    and the number of cases in each of the groups "D=256", "G=6" and
+    "MLA"."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     groups = {}           # (dtype, D or case kind) -> [(err, worst, name)]
 
@@ -1003,6 +1049,7 @@ def k2_checks():
                    for x in k2_inputs(1, H, KH, S, S, D, dtype, gen))
         run(dt, "G=6", f"{dt} (B,S,H,D) phase 19 prefill S={S} H={H} "
             f"KH={KH} D={D}", q, k, v, MIXTRAL_MASKS[1], bshd=True)
+        k2_mla_cases(run, dt, dtype, gen)
         for S, D, H, KH in ((511, 64, 15, 5), (300, 128, 8, 2),
                             (65, 16, 4, 2)):
             for mask in K2_MASKS:
@@ -1041,7 +1088,33 @@ def k2_checks():
           f"launch, none counted")
     err = max(e for rows in groups.values() for e, _, _ in rows)
     return err, worst, {g: sum(len(r) for (_, key), r in groups.items()
-                               if key == g) for g in ("D=256", "G=6")}
+                               if key == g) for g in ("D=256", "G=6", "MLA")}
+
+
+def k2_mla_cases(run, dt, dtype, gen):
+    """deepseek's MLA instance (D = 192, DV = 128, G = 1) through ``run``:
+    causal S across the 128-row and 64-key tiles to past phase 20's
+    prompts, Sq != Sk, and phase 20's longest prefill in the model layout
+    with v a slice of k_up (B,S,H,nope+DV), as ``mla_prefill`` passes it.
+    The plain version's S x S scores are handed back after each case."""
+    H, KH, D, DV = mla_dims(DEEPSEEK)
+    for Sq, Sk in ((511, 511), (4100, 4100), (300, 1100)):
+        q, k, v = k2_inputs(1, H, KH, Sq, Sk, D, dtype, gen, DV)
+        run(dt, "MLA", f"{dt} B=1 H={H} KH={KH} Sq={Sq} Sk={Sk} D={D} "
+            f"DV={DV}", q, k, v, "causal")
+        del q, k, v
+        release_device_memory()
+    S = max(DEEPSEEK_PROMPTS)
+    q, k = (x.transpose(1, 2).contiguous() for x in
+            k2_inputs(1, H, KH, S, S, D, dtype, gen)[:2])
+    nope = get_config(DEEPSEEK).mla_qk_nope_dim
+    k_up = torch.randn(1, S, KH, nope + DV, generator=gen,
+                       device=DEVICE).to(dtype)
+    run(dt, "MLA", f"{dt} (B,S,H,D) phase 20 prefill S={S} H={H} KH={KH} "
+        f"D={D} DV={DV}, v = k_up[..., {nope}:]", q, k, k_up[..., nope:],
+        "causal", bshd=True)
+    del q, k, k_up
+    release_device_memory()
 
 
 K2_LSE_TOL = 1e-4       # log2 domain: the same fp32 sums in another order
@@ -1104,20 +1177,22 @@ def k2_pairs(Sq, Sk, causal, window=0):
     return int(vis.sum())
 
 
-def k2_work(q, k, causal, window=0):
+def k2_work(q, k, causal, window=0, DV=None):
     """The bytes the function must move (q, k, v read once, out written
-    once) and its FLOPs, 4*D per visible (query, key) pair per query
-    head."""
+    once) and its FLOPs, 2*(D+DV) per visible (query, key) pair per query
+    head (Q.K^T over D, P.V over DV; DV defaults to D)."""
     B, H, Sq, D = q.shape
-    Sk = k.shape[2]
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return nbytes, 4 * B * H * D * k2_pairs(Sq, Sk, causal, window)
+    KH, Sk = k.shape[1], k.shape[2]
+    DV = DV or D
+    nbytes = q.element_size() * (q.numel() + k.numel() + B * KH * Sk * DV
+                                 + B * H * Sq * DV)
+    return nbytes, 2 * B * H * (D + DV) * k2_pairs(Sq, Sk, causal, window)
 
 
-def k2_bound(q, k, causal, window=0):
+def k2_bound(q, k, causal, window=0, DV=None):
     """Least time for the same work: its bytes over HBM bandwidth vs its
     FLOPs over the bf16 (or fp32) peak; the larger bounds it."""
-    nbytes, flops = k2_work(q, k, causal, window)
+    nbytes, flops = k2_work(q, k, causal, window, DV)
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1144,7 +1219,7 @@ def graph_ms(fn, calls=20):
     return time_ms(graph.replay, reps=10, warmup=1) / calls
 
 
-K2_TIMING_SHAPES = {  # key -> (H, KH, S, D, window), B=1, causal, bf16
+K2_TIMING_SHAPES = {  # key -> (H, KH, S, D, window[, DV]), B=1, causal, bf16
     "S511": (15, 5, 511, 64, 0),       # the dense serving prefill
     "S4096": (15, 5, 4096, 64, 0),
     "D128_S4096": (32, 8, 4096, 128, 0),
@@ -1156,7 +1231,32 @@ K2_TIMING_SHAPES = {  # key -> (H, KH, S, D, window), B=1, causal, bf16
     # at twice the window
     "mixtral_S4096": (48, 8, 4096, 128, 0),
     "mixtral_S8192_w4096": (48, 8, 8192, 128, 4096),
+    # deepseek's MLA prefill (H = KH = 128, D = 192, DV = 128)
+    "deepseek_S4096": (128, 128, 4096, 192, 0, 128),
 }
+
+
+def sdpa_backend(q, k, v):
+    """SDPA at a value dim unlike the query dim: the first backend, in
+    flash, cuDNN, memory-efficient order, that takes the causal call
+    (tried once; timed only), as (its name, the call, the refusals of the
+    backends before it); (None, None, refusals) when none does."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    refused = {}
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION"):
+        backend = getattr(SDPBackend, name)
+
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return sdpa(q, k, v, is_causal=True)
+        try:
+            call()
+            sync()
+            return name.lower(), call, refused
+        except RuntimeError as e:
+            refused[name.lower()] = str(e).splitlines()[0][:200]
+    return None, None, refused
 
 
 def sdpa_call(q, k, v, window):
@@ -1189,42 +1289,55 @@ def k2_timings():
     with TFLOP/s counting 4*H*D per visible pair."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     out = {}
-    for key, (H, KH, S, D, w) in K2_TIMING_SHAPES.items():
-        q, k, v = k2_inputs(1, H, KH, S, S, D, torch.bfloat16, gen)
-        lib = sdpa_call(q, k, v, w)
-        t = time_turns({
-            "kernel": (lambda: flash_attention(q, k, v, causal=True,
-                                               window=w), 50),
-            "library": (lib, 50),
-            "plain": (lambda: flash_attention_ref(q, k, v, causal=True,
-                                                  window=w), 10)})
+    for key, (H, KH, S, D, w, *dv) in K2_TIMING_SHAPES.items():
+        DV = dv[0] if dv else D
+        q, k, v = k2_inputs(1, H, KH, S, S, D, torch.bfloat16, gen, DV)
+        if DV == D:
+            lib, lib_name = sdpa_call(q, k, v, w), (
+                "sdpa, dense boolean mask on K/V repeated to the query "
+                "heads (no windowed route)" if w
+                else "sdpa, is_causal, enable_gqa")
+            refused = {}
+        else:
+            backend, lib, refused = sdpa_backend(q, k, v)
+            lib_name = backend and f"sdpa, is_causal, backend {backend}"
+        fns = {"kernel": (lambda: flash_attention(q, k, v, causal=True,
+                                                  window=w), 50),
+               "plain": (lambda: flash_attention_ref(q, k, v, causal=True,
+                                                     window=w), 10)}
+        if lib is not None:
+            fns["library"] = (lib, 50)
+        t = time_turns(fns)
         dev = graph_ms(lambda: flash_attention(q, k, v, causal=True,
                                                window=w))
-        lib_dev = graph_ms(lib)
-        bound_ms, bound_by = k2_bound(q, k, True, w)
-        flops = k2_work(q, k, True, w)[1]
+        lib_dev = graph_ms(lib) if lib is not None else None
+        bound_ms, bound_by = k2_bound(q, k, True, w, DV)
+        flops = k2_work(q, k, True, w, DV)[1]
         mask = f"causal, window {w}" if w else "causal"
-        out[key] = dict(shape=f"B=1 H={H} KH={KH} S={S} D={D} {mask} bf16",
-                        library=("sdpa, dense boolean mask on K/V repeated "
-                                 "to the query heads (no windowed route)"
-                                 if w else "sdpa, is_causal, enable_gqa"),
+        dims = f"D={D}" if DV == D else f"D={D} DV={DV}"
+        out[key] = dict(shape=f"B=1 H={H} KH={KH} S={S} {dims} {mask} bf16",
+                        library=lib_name, library_refusals=refused,
                         ms=t["kernel"], plain_ms=t["plain"],
                         bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=t["library"],
+                        library_ms=t.get("library"),
                         tflops=flops / t["kernel"] / 1e9,
                         bound_share=bound_ms / t["kernel"],
                         graph_ms=dev, library_graph_ms=lib_dev,
                         graph_tflops=flops / dev / 1e9,
                         graph_bound_share=bound_ms / dev)
         r = out[key]
+        lib_txt = (f"{r['library']} {r['library_ms']:.4f} ms, in a CUDA "
+                   f"graph {lib_dev:.4f} ms = {flops / lib_dev / 1e9:.1f} "
+                   "TFLOP/s" if lib is not None else
+                   f"no SDPA backend takes DV != D ({refused})")
         print(f"  {key} ({r['shape']}): kernel {r['ms']:.4f} ms = "
               f"{r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}% of "
               f"the bound {bound_ms:.5f} ms ({bound_by}); in a CUDA graph "
               f"{dev:.4f} ms = {r['graph_tflops']:.1f} TFLOP/s, "
               f"{100 * r['graph_bound_share']:.1f}% of the bound; "
-              f"{r['library']} {r['library_ms']:.4f} ms, in a CUDA graph "
-              f"{lib_dev:.4f} ms = {flops / lib_dev / 1e9:.1f} TFLOP/s; "
-              f"plain {r['plain_ms']:.4f} ms", flush=True)
+              f"{lib_txt}; plain {r['plain_ms']:.4f} ms", flush=True)
+        del q, k, v, lib
+        release_device_memory()
     return out
 
 
@@ -3416,7 +3529,9 @@ K_NAMES = {"K1": ("paged_attention_split_kernel",
 
 def profile_phase(cfg, params, walls):
     """Where the serving time goes: the paged and the dense cluster runs
-    once more under ``torch.profiler`` (CPU + CUDA activities).  Sums the
+    once more under ``torch.profiler``, CUDA activity only (the host's op
+    events, which nothing here reads, took ~110 s of post-processing a
+    run of 50-70k kernels).  Sums the
     device time of every kernel and copy in the trace (device events
     only, so an op's time is not counted twice) and prints it beside the
     same run's wall time without the profiler (``walls``, from the serving
@@ -3429,8 +3544,7 @@ def profile_phase(cfg, params, walls):
     for name, argv in (("paged cluster", SERVE_ARGV),
                        ("dense cluster", DENSE_ARGV)):
         args = serve.parse_args(argv + ["--device", DEVICE])
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, _, _, dt = serve.run_cluster(cfg, args, params, verbose=False)
         rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                        for e in prof.key_averages()
@@ -3742,18 +3856,30 @@ def fan_in_scaled(params):
     first axis as its fan-in, and a stacked leaf's first axis is the
     depth), to 1/sqrt(its own fan-in): H x D for the attention output
     projection, the axis after the expert axis for a MoE's expert stacks,
-    its second axis for every other matrix; the MoE router keeps its own
-    std (0.02, not depth's)."""
+    its second axis for every other matrix (a MoE's shared experts'
+    among them); the MoE router keeps its own std (0.02, not depth's).
+    A prologue block is drawn unstacked, at its first axis's fan-in,
+    right but for its output projection, whose first axis is H: that
+    takes 1/sqrt(H x D) too."""
     def scale(part, name, t):
+        if isinstance(t, dict):
+            return {n: scale("shared", n, x) for n, x in t.items()}
         if t.dim() < 3 or name == "router":
             return t
         fan = (t.shape[1] * t.shape[2] if name == "o"
                else t.shape[2] if part == "moe" else t.shape[1])
         return t * math.sqrt(t.shape[0] / fan)
-    return dict(params, super={
+
+    def prologue(block):
+        o = block["mix"]["o"]
+        return dict(block, mix=dict(block["mix"], o=o / math.sqrt(o.shape[1])))
+    out = dict(params, super={
         pos: {part: {n: scale(part, n, t) for n, t in leaves.items()}
               for part, leaves in block.items()}
         for pos, block in params["super"].items()})
+    if "prologue" in params:
+        out["prologue"] = [prologue(b) for b in params["prologue"]]
+    return out
 
 
 def _max_gap(a, b):
@@ -4349,9 +4475,12 @@ def moe_bound(cfg, moe, T, drop):
     it, the weights' bytes, x's and y's bytes, and the kept rows."""
     d, ff, E, K = cfg.d_model, cfg.moe_d_ff, cfg.moe_num_experts, cfg.moe_top_k
     kept = round(T * K * (1.0 - drop))
-    wbytes = sum(t.numel() * t.element_size() for t in moe.values())
+    wbytes = sum(t.numel() * t.element_size() for t in tree_leaves(moe))
     xbytes = 2 * T * d * 2
-    flops = 2 * T * d * E + 6 * kept * d * ff
+    # the router, the kept rows' three expert products, and the shared
+    # experts' (one SwiGLU of moe_d_ff x num_shared over every token)
+    flops = (2 * T * d * E + 6 * kept * d * ff
+             + 6 * T * d * ff * cfg.moe_num_shared)
     t_bytes = (wbytes + xbytes) / HBM_BYTES_PER_S
     t_ops = flops / BF16_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -4359,22 +4488,28 @@ def moe_bound(cfg, moe, T, drop):
         kept
 
 
-def moe_probe(cfg, params, prompt):
-    """``moe_apply`` at full width on layer 0: its input for ``prompt``
-    (the embedding through the first block's attention half and norm2)
-    gives the drop_frac at the config's capacity factor; CUDA-event times
-    there and at the decode shape (4 rows of that input, S = 1: drop-free
-    C = T), each beside ``moe_bound``; and the share of a whole-model
-    decode step at B = 4 (ring caches, the prompts' positions) that its
-    calls, one a layer, would take at that time."""
-    p = next(super_layers(cfg, params))
+def moe_probe(cfg, params, prompt, prompts, max_len):
+    """``moe_apply`` at full width on the first MoE layer: its input for
+    ``prompt`` (the embedding through the blocks before it, then its own
+    attention half and norm2) gives the drop_frac at the config's
+    capacity factor; CUDA-event times there and at the decode shape (4
+    rows of that input, S = 1: drop-free C = T), each beside
+    ``moe_bound``; and the share of a whole-model decode step at B = 4
+    (caches of ``max_len``, at ``prompts``' positions) that its calls,
+    one a MoE layer, would take at that time."""
     tokens = torch.as_tensor(np.asarray(prompt), device=DEVICE)[None]
     S = tokens.shape[1]
     pos = torch.arange(S, device=DEVICE)[None]
     with torch.no_grad():
         h = _embed(cfg, params, tokens, pos)
-        out, _ = gqa_prefill(cfg, p["mix"], apply_norm(cfg, p["norm1"], h),
-                             pos, window=_window(cfg.blocks[0]))
+        for b, p in _blocks(cfg, params):
+            if "moe" in p:
+                break
+            h = _apply_block(cfg, b, p, h, pos)[0]
+        hn = apply_norm(cfg, p["norm1"], h)
+        out = (mla_prefill(cfg, p["mix"], hn, pos) if cfg.mla_kv_lora_rank
+               else gqa_prefill(cfg, p["mix"], hn, pos,
+                                window=_window(b)))[0]
         x = apply_norm(cfg, p["norm2"], h + out)
         xd = x[0, -4:, None]
         drop = float(moe_apply(cfg, p["moe"], x)[1]["drop_frac"])
@@ -4382,10 +4517,9 @@ def moe_probe(cfg, params, prompt):
                          warmup=2)
         dec_ms = time_ms(lambda: moe_apply(cfg, p["moe"], xd), reps=50,
                          warmup=5)
-        caches = init_caches(cfg, 4, int(_MIXTRAL_RUN[-1]), device=DEVICE)
+        caches = init_caches(cfg, 4, max_len, device=DEVICE)
         tok = tokens[0, -4:]
-        cpos = torch.tensor(MIXTRAL_PROMPTS, dtype=torch.int32,
-                            device=DEVICE)
+        cpos = torch.tensor(prompts, dtype=torch.int32, device=DEVICE)
         step_ms = time_ms(lambda: decode_step(cfg, params, tok, caches,
                                               cpos), reps=10, warmup=2)
     del caches
@@ -4394,8 +4528,10 @@ def moe_probe(cfg, params, prompt):
     pre_bound, pre_by, wbytes, pre_xbytes, kept = moe_bound(
         cfg, p["moe"], S, drop)
     dec_bound, dec_by, _, dec_xbytes, _ = moe_bound(cfg, p["moe"], 4, 0.0)
-    share = cfg.num_layers * dec_ms / step_ms
-    print(f"  moe_apply, layer 0, the {S}-token prompt (capacity factor "
+    n_moe = sum(b.moe for b in cfg.blocks)
+    share = n_moe * dec_ms / step_ms
+    print(f"  moe_apply, the first MoE layer, the {S}-token prompt "
+          f"(capacity factor "
           f"{cfg.moe_capacity_factor}, C = {C} of {E} x {C} slots for "
           f"{S * K} rows): drop_frac {drop:.6f} ({kept} rows kept); "
           f"{pre_ms:.4f} ms, bound {pre_bound:.4f} ms ({pre_by}; "
@@ -4405,7 +4541,7 @@ def moe_probe(cfg, params, prompt):
           f"{dec_ms:.4f} ms, bound {dec_bound:.4f} ms ({dec_by}; "
           f"{wbytes / 1e9:.3f} GB of weights, {dec_xbytes / 1e3:.1f} kB of "
           f"x and y); a whole-model decode step at B = 4 {step_ms:.4f} ms; "
-          f"{cfg.num_layers} x that moe_apply time would be "
+          f"{n_moe} x that moe_apply time would be "
           f"{100 * share:.1f}% of it (an estimate from the two standalone "
           "timings, not a profile of the step)", flush=True)
     return dict(prompt=S, capacity=C, drop_frac=drop, kept_rows=kept,
@@ -4419,12 +4555,9 @@ def moe_probe(cfg, params, prompt):
 def mixtral_phase(seed, card):
     """mixtral-8x22b at full width in bf16, MIXTRAL_LAYERS of its 56 layers
     (d=6144, 48/8 heads, D=128, 8 experts top-2 of d_ff 16384, window
-    4096; weights drawn once on the card): ``launch/serve.py --dense``'s
-    cluster (phase 5's dense checks) and ``Engine``, each with exact
-    launch counts (K2 == layers x 4 prefills, all tensor-core and all
-    windowed; K1 none), tokens/s, peak memory and wall time; then
-    ``moe_probe``.  Returns the counts, rates and measurements."""
-    t_phase = time.perf_counter()
+    4096; weights drawn once on the card): ``moe_model_phase`` on
+    ``launch/serve.py --dense``'s cluster and ``Engine`` (K2 == layers x 4
+    prefills, all tensor-core and all windowed; K1 none)."""
     cfg = family_config(MIXTRAL, MIXTRAL_LAYERS)
     full = get_config(MIXTRAL)
     print(f"  {cfg.name}: {cfg.num_layers}L (cut from {full.num_layers}) "
@@ -4435,6 +4568,20 @@ def mixtral_phase(seed, card):
           f"capacity factor {cfg.moe_capacity_factor}, {cfg.param_dtype}; "
           f"{cfg.param_count() / 1e9:.3f} B params ({full.num_layers} "
           f"layers: {full.param_count() / 1e9:.1f} B)", flush=True)
+    return moe_model_phase(cfg, seed, card, MIXTRAL_ARGV,
+                           MIXTRAL_ENGINE_ARGV, MIXTRAL_PROMPTS,
+                           int(_MIXTRAL_RUN[-1]), "phase 19")
+
+
+def moe_model_phase(cfg, seed, card, argv, engine_argv, prompts, max_len,
+                    name):
+    """A MoE model at full width in bf16 (weights drawn once on the card):
+    ``argv``'s dense cluster (phase 5's dense checks) and ``Engine`` on
+    ``engine_argv``, each with exact launch counts (K2 == layers x
+    prefills, all tensor-core, the windowed layers' share windowed; K1
+    none), tokens/s, peak memory and wall time; then ``moe_probe``.
+    Returns the counts, rates and measurements."""
+    t_phase = time.perf_counter()
     release_device_memory()
     reset_peak()
     t0 = time.perf_counter()
@@ -4446,19 +4593,20 @@ def mixtral_phase(seed, card):
           "GiB while drawing)", flush=True)
     reset_peak()
     (k2n, _), tok_s, dt, tokens = dense_serving_phase(cfg, params, card,
-                                                      MIXTRAL_ARGV)
-    n_req = len(MIXTRAL_PROMPTS)
+                                                      argv)
+    n_req = len(prompts)
     cluster = check_prefill_launches(cfg, n_req, "dense cluster")
     cluster_peak = peak_gib()
+    window = max(b.window if b.attn in ("swa", "local") else 0
+                 for b in cfg.blocks)
     print(f"  dense cluster: K2 launches {k2n} = {cfg.num_layers} layers x "
           f"{n_req} prefills, all tensor-core, {cluster['k2_window']} with "
-          f"window {max(b.window for b in cfg.blocks)}; K1 0; {tok_s:.2f} "
-          f"tokens/s in {dt:.3f} s; peak "
+          f"window {window}; K1 0; {tok_s:.2f} tokens/s in {dt:.3f} s; peak "
           f"device memory {cluster_peak:.2f} GiB", flush=True)
 
-    args = serve.parse_args(MIXTRAL_ENGINE_ARGV + ["--device", DEVICE])
+    args = serve.parse_args(engine_argv + ["--device", DEVICE])
     _run_engine(cfg, params, serve.parse_args(
-        MIXTRAL_ENGINE_ARGV + ["--device", DEVICE, "--new-tokens", "2"]))
+        engine_argv + ["--device", DEVICE, "--new-tokens", "2"]))
     release_device_memory()
     reset_peak()
     zero_counts()
@@ -4476,11 +4624,11 @@ def mixtral_phase(seed, card):
           f"{engine['k2_window']} windowed; K1 0; peak device memory "
           f"{engine_peak:.2f} GiB; tokens agreeing with the dense cluster's "
           f"(bf16, other batch shapes): {agree} of {etoks}", flush=True)
-    moe = moe_probe(cfg, params, reqs[-1].prompt)
+    moe = moe_probe(cfg, params, reqs[-1].prompt, prompts, max_len)
     del params, eng
     release_device_memory()
     wall = time.perf_counter() - t_phase
-    print(f"  phase 19 (bf16 runs) wall time {wall:.2f} s", flush=True)
+    print(f"  {name} (bf16 runs) wall time {wall:.2f} s", flush=True)
     return dict(layers=cfg.num_layers, cluster=cluster, engine=engine,
                 dense_tokens_per_s=tok_s, dense_s=dt,
                 engine_tokens_per_s=etoks / edt, engine_s=edt,
@@ -4496,6 +4644,75 @@ def mixtral_cross_check(seed):
     return family_cross_check(
         family_config(MIXTRAL, MIXTRAL_XCHECK_LAYERS, "float32"),
         MIXTRAL_XCHECK_ARGV, seed)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: deepseek-v2-236b at full width
+# ---------------------------------------------------------------------------
+
+# deepseek's MoE repeats that phase 20 serves after its dense prologue
+# layer: 5 of 60 layers hold 17.275 B params, 34.55 GB in bf16 (the
+# embedding and head 1.049 B, the prologue 0.338 B, a MoE repeat 3.972 B;
+# PERF.md section 4 has the reckoning); drawing the last expert stack (4 x
+# 160 x 5120 x 1536) holds its fp32 draw (20.1 GB) beside the rest
+DEEPSEEK_REPEATS = 4
+DEEPSEEK_XCHECK_REPEATS = 1
+_DEEPSEEK_RUN = ["--batch", "4", "--prompt",
+                 ",".join(map(str, DEEPSEEK_PROMPTS)), "--new-tokens", "16",
+                 "--max-len", "2128"]
+# the dense cluster (the MILP's 2-stage plan on A100,L4) and Engine
+DEEPSEEK_ARGV = ["--arch", DEEPSEEK, "--cluster", "A100,L4", "--stages",
+                 "2", "--dense"] + _DEEPSEEK_RUN
+DEEPSEEK_ENGINE_ARGV = ["--arch", DEEPSEEK] + _DEEPSEEK_RUN
+# the f32 cross-check: the prologue and one MoE layer at full width, one
+# 600-token prompt, on the dense cluster
+DEEPSEEK_XCHECK_ARGV = ["--arch", DEEPSEEK, "--cluster", "A100,L4",
+                        "--stages", "2", "--dense", "--batch", "1",
+                        "--prompt", "600", "--new-tokens", "4", "--max-len",
+                        "608"]
+
+
+def deepseek_phase(seed, card):
+    """deepseek-v2-236b at full width in bf16, its dense prologue layer and
+    DEEPSEEK_REPEATS of its 59 MoE layers (d=5120, 128 heads with MLA,
+    160 experts top-6 of d_ff 1536 and 2 shared; weights drawn once on the
+    card): ``moe_model_phase`` on ``launch/serve.py --dense``'s cluster and
+    ``Engine`` (K2 == 5 layers x 4 prefills, all tensor-core at (D, DV) =
+    (192, 128), none windowed; K1 none), and the MLA cache's bytes a
+    token."""
+    cfg = family_config(DEEPSEEK, DEEPSEEK_REPEATS)
+    full = get_config(DEEPSEEK)
+    cache = mla_cache_init(cfg, 1, 1, torch.bfloat16, device="meta")
+    per_layer = sum(cache[k].numel() * cache[k].element_size()
+                    for k in ("c", "r"))
+    print(f"  {cfg.name}: {cfg.num_layers}L (the dense prologue + "
+          f"{cfg.repeats} MoE repeats, cut from {full.num_layers}) "
+          f"d={cfg.d_model} H={cfg.num_heads} MLA q_lora "
+          f"{cfg.mla_q_lora_rank} kv_lora {cfg.mla_kv_lora_rank} nope "
+          f"{cfg.mla_qk_nope_dim} rope {cfg.mla_qk_rope_dim} v "
+          f"{cfg.mla_v_dim}; {cfg.moe_num_experts} experts top-"
+          f"{cfg.moe_top_k} d_ff={cfg.moe_d_ff} + {cfg.moe_num_shared} "
+          f"shared; vocab={cfg.vocab_size}, capacity factor "
+          f"{cfg.moe_capacity_factor}, {cfg.param_dtype}; "
+          f"{cfg.param_count() / 1e9:.3f} B params ({full.num_layers} "
+          f"layers: {full.param_count() / 1e9:.1f} B); MLA cache "
+          f"{per_layer} B a token and layer, {cfg.num_layers * per_layer} B "
+          f"a token over the {cfg.num_layers} layers", flush=True)
+    out = moe_model_phase(cfg, seed, card, DEEPSEEK_ARGV,
+                          DEEPSEEK_ENGINE_ARGV, DEEPSEEK_PROMPTS,
+                          int(_DEEPSEEK_RUN[-1]), "phase 20")
+    return dict(out, params=cfg.param_count(),
+                mla_cache_bytes_per_token=cfg.num_layers * per_layer)
+
+
+def deepseek_cross_check(seed):
+    """deepseek-v2-236b at full width, its prologue and
+    DEEPSEEK_XCHECK_REPEATS MoE layer in f32 (5.359 B params, 21.4 GB on
+    each side), the dense cluster on cuda and on the CPU on a 600-token
+    prompt, under phase 15's two gates."""
+    return family_cross_check(
+        family_config(DEEPSEEK, DEEPSEEK_XCHECK_REPEATS, "float32"),
+        DEEPSEEK_XCHECK_ARGV, seed)
 
 
 # ---------------------------------------------------------------------------
@@ -4568,10 +4785,12 @@ def build_all():
                 print("  " + line.strip())
         for e in ptxas_report(log):
             dyn = ""
-            fwd = re.match(r"flash_attention_(\w+)_kernel<(\d+)>", e["name"])
+            fwd = re.match(r"flash_attention_(\w+)_kernel<(\d+),(\d+)>",
+                           e["name"])
             if fwd:
-                kind, D = fwd.groups()
-                dyn = f", {k2.smem_bytes(kind == 'tc', int(D))} B dynamic smem"
+                kind, D, DV = fwd.groups()
+                dyn = (f", {k2.smem_bytes(kind == 'tc', int(D), int(DV))} B "
+                       "dynamic smem")
             bwd = re.match(r"fa_bwd_(\w+)_kernel<(?:\d,)?(\d+)>",
                            e["name"])
             if bwd:
@@ -4592,9 +4811,11 @@ def build_all():
                     f"{e['name']} spills registers")
         if label == "flash_attention.cu":
             names = {e["name"] for e in ptxas_report(log)}
-            for kind in ("f32", "tc"):
-                require(f"flash_attention_{kind}_kernel<256>" in names,
-                        f"flash_attention.cu built no D=256 {kind} instance")
+            for kind, dims in itertools.product(("f32", "tc"),
+                                                ("256,256", "192,128")):
+                require(f"flash_attention_{kind}_kernel<{dims}>" in names,
+                        f"flash_attention.cu built no (D, DV) = ({dims}) "
+                        f"{kind} instance")
 
 
 def main() -> int:
@@ -4763,6 +4984,18 @@ def main() -> int:
     mixtral["xcheck"] = mixtral_cross_check(args.seed)
     print(f"  phase 19 took {time.perf_counter() - t0:.2f} s")
 
+    phase(f"deepseek-v2-236b at full width, the dense prologue + "
+          f"{DEEPSEEK_REPEATS} MoE repeats of its 60 layers: MLA (K2 at D = "
+          "192, DV = 128), 160 experts top-6 + 2 shared; dense cluster and "
+          "Engine")
+    t0 = time.perf_counter()
+    release_device_memory()
+    deepseek = deepseek_phase(args.seed, card)
+    phase(f"cross-check f32, the prologue + {DEEPSEEK_XCHECK_REPEATS} MoE "
+          "layer at full width: deepseek's dense cluster, cuda vs cpu")
+    deepseek["xcheck"] = deepseek_cross_check(args.seed)
+    print(f"  phase 20 took {time.perf_counter() - t0:.2f} s")
+
     print(f"\nserving: paged {tok_s:.2f} tokens/s, dense "
           f"{dense_tok_s:.2f} tokens/s on {card}")
     secs = phase_seconds()
@@ -4796,6 +5029,8 @@ def main() -> int:
              k: gemma3_paged[k]["k1"] for k in ("cluster", "engine")},
          "mixtral_launches": {
              k: mixtral[k]["k1"] for k in ("cluster", "engine")},
+         "deepseek_launches": {
+             k: deepseek[k]["k1"] for k in ("cluster", "engine")},
          "max_abs_err": k1_err, "worst_err_over_limit": k1_worst,
          "ms": main1["ms"], "plain_ms": main1["plain_ms"],
          "bound_ms": main1["bound_ms"], "bound_by": main1["bound_by"],
@@ -4830,7 +5065,12 @@ def main() -> int:
          "mixtral_launches": {
              k: {key: mixtral[k][key] for key in ("k2", "k2_tc", "k2_window")}
              for k in ("cluster", "engine")},
+         "deepseek_launches": {
+             k: {key: deepseek[k][key] for key in ("k2", "k2_tc",
+                                                   "k2_window")}
+             for k in ("cluster", "engine")},
          "d256_cases": k2_groups["D=256"], "g6_cases": k2_groups["G=6"],
+         "mla_cases": k2_groups["MLA"],
          "max_abs_err": k2_err, "worst_err_over_limit": k2_worst,
          "lse_max_abs_err": k2_lse_err,
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
@@ -4842,7 +5082,8 @@ def main() -> int:
          "gemma3_S4096": t2["gemma3_S4096"],
          "gemma3_S4096_w1024": t2["gemma3_S4096_w1024"],
          "mixtral_S4096": t2["mixtral_S4096"],
-         "mixtral_S8192_w4096": t2["mixtral_S8192_w4096"]},
+         "mixtral_S8192_w4096": t2["mixtral_S8192_w4096"],
+         "deepseek_S4096": t2["deepseek_S4096"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/models/attention.py:63 (no Pallas kernel: "
@@ -4868,7 +5109,7 @@ def main() -> int:
                      for key, val in train.items() if key != "launches"},
         "families": families, "gemma3": gemma3,
         "gemma3_training": gemma3_train, "gemma3_paged": gemma3_paged,
-        "mixtral": mixtral, "phase_seconds": secs}
+        "mixtral": mixtral, "deepseek": deepseek, "phase_seconds": secs}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@
 A copy of ``repro.configs`` restricted to the architectures the PyTorch port
 carries (GQA decoders with a dense FFN or a routed MoE, their attention
 full, local or sliding-window: gemma3's stack of five local layers to each
-global one, and mixtral's sliding-window MoE layers, among them).  Each
+global one, and mixtral's sliding-window MoE layers, among them), and the
+MLA decoder deepseek-v2 (a dense prologue layer before its MoE layers).  Each
 module exports ``CONFIG`` (the full published config) and ``SMOKE`` (a
 reduced same-family config for CPU tests).
 """
@@ -22,6 +23,7 @@ ARCH_IDS = [
     "chameleon_34b",
     "gemma3_12b",
     "mixtral_8x22b",
+    "deepseek_v2_236b",
 ]
 
 

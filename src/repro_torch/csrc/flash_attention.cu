@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel
 //   repro/kernels/flash_attention/kernel.py::flash_attention  (body _kernel)
 // and computes what it computes: blockwise attention of q (B,H,Sq,D) over
-// k/v (B,KH,Sk,D), query head h reading kv head h / G, with an fp32 online
+// k (B,KH,Sk,D) and v (B,KH,Sk,DV), query head h reading kv head h / G, with
+// an fp32 online
 // softmax (running max, denominator, accumulator) over the kv tiles in
 // order; the scores are scaled by 1/sqrt(D) in fp32, the probabilities keep
 // fp32 precision in the P.V product, and the denominator is clamped at
@@ -87,6 +88,17 @@
 //   (64-row query tile, query head, batch), 256 threads as a 16 x 16 grid,
 //   fp32 FMAs; K rows padded to D + 1 floats in shared memory (213,504 B
 //   at D = 256, under the 232,448 B a block may opt into).
+//
+// Value dim.  Each instance pairs the query/key dim D with a value dim DV
+// (template <int D, int DV>): (D, D) for D = 16, 64, 128 and 256, and
+// (192, 128) for MLA (deepseek-v2: q/k of nope 128 + rope 64, v of 128;
+// the scale stays 1/sqrt(D)).  Q.K^T walks D, the V tiles, P.V, the O
+// accumulator and the output take DV.  The (192, 128) tensor-core instance
+// keeps D = 128's layout (384 threads, a producer warpgroup, 64-key
+// tiles): Q and K rows are three 128-byte swizzled parts of 64 columns
+// (12 k-steps of 16), V rows two; shared memory Q 48 KiB + K ring 48 KiB
+// + V ring 32 KiB; the P.V accumulator is 64 x 128 a consumer group, as
+// at D = 128.  Its f32 instance holds 147,968 B of shared memory.
 #include "hopper.cuh"
 
 namespace {
@@ -99,17 +111,17 @@ constexpr int kTile = 64;       // query rows per block and keys per kv tile
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kRows = kTile / 16;
 
-// Shared memory (floats) for head dim D:
+// Shared memory (floats) for head dims D and DV:
 //   q  kTile*D        query tile, fp32, pre-scaled
 //   k  kTile*(D+1)    key tile (padded rows)
-//   v  kTile*D        value tile
+//   v  kTile*DV       value tile
 //   p  kTile*(kTile+1) probabilities of the tile
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  return sizeof(float) * (size_t)(kTile * D + kTile * (D + 1) + kTile * D +
+__host__ __device__ constexpr size_t smem_bytes(int D, int DV) {
+  return sizeof(float) * (size_t)(kTile * D + kTile * (D + 1) + kTile * DV +
                                   kTile * (kTile + 1));
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
@@ -118,7 +130,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kTile + 1;
-  constexpr int DC = D / 16;    // accumulator columns per thread
+  constexpr int DC = DV / 16;   // accumulator columns per thread
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -131,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
   float* q_s = smem;
   float* k_s = q_s + kTile * D;
   float* v_s = k_s + kTile * DP;
-  float* p_s = v_s + kTile * D;
+  float* p_s = v_s + kTile * DV;
 
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + kh * ks.h;
@@ -164,9 +176,12 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     for (int i = tid; i < kTile * D; i += kThreads) {
       const int r = i / D, d = i % D;
       const int kpos = k0 + r;
-      const bool in = kpos < Sk;
-      k_s[r * DP + d] = in ? kb[kpos * ks.s + d] : 0.f;
-      v_s[r * D + d] = in ? vb[kpos * vs.s + d] : 0.f;
+      k_s[r * DP + d] = kpos < Sk ? kb[kpos * ks.s + d] : 0.f;
+    }
+    for (int i = tid; i < kTile * DV; i += kThreads) {
+      const int r = i / DV, d = i % DV;
+      const int kpos = k0 + r;
+      v_s[r * DV + d] = kpos < Sk ? vb[kpos * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -232,7 +247,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 #pragma unroll
       for (int i = 0; i < kRows; ++i) pv[i] = p_s[(ty + 16 * i) * PP + t];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) vv[j] = v_s[t * D + tx + 16 * j];
+      for (int j = 0; j < DC; ++j) vv[j] = v_s[t * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -257,15 +272,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, float* lse, int B, int H, int KH, int Sq,
                        int Sk,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        int causal, int window, float scale,
                        cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes(D);
-  auto kernel = flash_attention_f32_kernel<D>;
+  constexpr size_t smem = smem_bytes(D, DV);
+  auto kernel = flash_attention_f32_kernel<D, DV>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -291,10 +306,12 @@ constexpr int kConsumerWarps = 8;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;   // 128*40 + 256*232 <= 65536
 
-// Per head dim (tile rows stored as hopper.cuh's Rows<D> says):
-template <int D>
+// Per head dims (Q and K tile rows stored as hopper.cuh's Rows<D> says, V
+// tile rows as Rows<DV>):
+template <int D, int DV>
 struct Cfg : Rows<D> {
   using R = Rows<D>;
+  using RV = Rows<DV>;
   // D = 256 has no producer warpgroup: its two consumer groups' thread 0
   // keeps the ring full (kSelfFed), so a thread may hold 255 registers
   static constexpr bool kSelfFed = D == 256;
@@ -304,12 +321,14 @@ struct Cfg : Rows<D> {
   // takes 64, as does D = 256, whose 128-key ring would not fit
   static constexpr int kBN = D >= 128 ? 64 : 128;
   static constexpr int kPartQ = kBM * R::kRowBytes;
-  static constexpr int kPartKV = kBN * R::kRowBytes;
+  static constexpr int kPartK = kBN * R::kRowBytes;
+  static constexpr int kPartV = kBN * RV::kRowBytes;
   static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kKVBytes = kBN * D * 2;
+  static constexpr int kKBytes = kBN * D * 2;
+  static constexpr int kVBytes = kBN * DV * 2;
   static constexpr int kK = kQBytes;               // offsets from the base
-  static constexpr int kV = kK + kStages * kKVBytes;
-  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kV = kK + kStages * kKBytes;
+  static constexpr int kBar = kV + kStages * kVBytes;
   // barriers: q_full, full_k[stages], full_v[stages], empty[stages]
   static constexpr int kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;  // + align
 };
@@ -323,31 +342,31 @@ struct Feed {
 
 // Ring step i (the K and V tiles from key k_lo + i * BN) into stage
 // i % kStages, by one thread once the stage is released.
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void fill(const Feed& f, uint32_t sk, uint32_t sv,
                                      uint32_t bar, int i) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   const uint32_t full_k = bar + 8, full_v = full_k + 8 * kStages,
                  empty = full_v + 8 * kStages;
   const int st = i % kStages;
   const uint32_t ph = (i / kStages) & 1;
   const int k0 = f.k_lo + i * C::kBN;
   mbar_wait(empty + 8 * st, ph ^ 1);   // the first round passes
-  mbar_expect_tx(full_k + 8 * st, C::kKVBytes);
+  mbar_expect_tx(full_k + 8 * st, C::kKBytes);
   for (int p = 0; p < C::kParts; ++p)
-    tma_load(sk + st * C::kKVBytes + p * C::kPartKV, f.tk, p * C::kCols, k0,
+    tma_load(sk + st * C::kKBytes + p * C::kPartK, f.tk, p * C::kCols, k0,
              f.kh, f.b, full_k + 8 * st);
-  mbar_expect_tx(full_v + 8 * st, C::kKVBytes);
-  for (int p = 0; p < C::kParts; ++p)
-    tma_load(sv + st * C::kKVBytes + p * C::kPartKV, f.tv, p * C::kCols, k0,
-             f.kh, f.b, full_v + 8 * st);
+  mbar_expect_tx(full_v + 8 * st, C::kVBytes);
+  for (int p = 0; p < C::RV::kParts; ++p)
+    tma_load(sv + st * C::kVBytes + p * C::kPartV, f.tv, p * C::RV::kCols,
+             k0, f.kh, f.b, full_v + 8 * st);
 }
 
 // The CTA's query tile, loaded once.
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void load_q(const CUtensorMap* tq, uint32_t sq,
                                        uint32_t q_full, int q0, int h, int b) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   mbar_expect_tx(q_full, C::kQBytes);
   for (int p = 0; p < C::kParts; ++p)
     tma_load(sq + p * C::kPartQ, tq, p * C::kCols, q0, h, b, q_full);
@@ -360,13 +379,13 @@ __device__ __forceinline__ void load_q(const CUtensorMap* tq, uint32_t sq,
 // the first row (e < 2) or the second (e >= 2).  Self-fed (D = 256), the
 // CTA's thread 0 also refills the ring: each stage one step after its
 // release, so the next tile is in flight while this one is computed.
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void consume(
     uint32_t sq, uint32_t sk, uint32_t sv, uint32_t bar, int g,
     __nv_bfloat16* __restrict__ ob, long long oss, float* __restrict__ lse,
     int Sq, int Sk, int q0, int k_lo, int n_tiles, int causal, int window,
     float scale, const Feed& feed) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   constexpr int BN = C::kBN;
   const uint32_t q_full = bar, full_k = bar + 8, full_v = full_k + 8 * kStages,
                  empty = full_v + 8 * kStages;
@@ -378,9 +397,9 @@ __device__ __forceinline__ void consume(
   const int c2 = 2 * (lane % 4);
   const float sc = scale * kLog2e;
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf};   // running max of the raw scores
   float ms[2] = {0.f, 0.f};          // m * sc as used in the exponents
   float l[2] = {0.f, 0.f};           // this thread's part of the row sums
@@ -391,13 +410,13 @@ __device__ __forceinline__ void consume(
     if constexpr (C::kSelfFed) {
       // refill the stage step i - 1 released (both groups are past it soon)
       if (threadIdx.x == 0 && i >= 1 && i - 1 + kStages < n_tiles)
-        fill<D>(feed, sk, sv, bar, i - 1 + kStages);
+        fill<D, DV>(feed, sk, sv, bar, i - 1 + kStages);
       __syncwarp();
     }
     const int st = i % kStages;
     const uint32_t ph = (i / kStages) & 1;
     const int k0 = k_lo + i * BN;
-    const uint32_t ka = sk + st * C::kKVBytes, va = sv + st * C::kKVBytes;
+    const uint32_t ka = sk + st * C::kKBytes, va = sv + st * C::kVBytes;
 
     // S = Q K^T (64 x BN), fp32
     float s[BN / 2];
@@ -406,7 +425,7 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint64_t qd = kmajor<D>(qa, C::kPartQ, kk);
-      const uint64_t kd = kmajor<D>(ka, C::kPartKV, kk);
+      const uint64_t kd = kmajor<D>(ka, C::kPartK, kk);
       if (kk == 0)
         Mma<BN>::template ss<true>(s, qd, kd);
       else
@@ -459,21 +478,21 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+    for (int e = 0; e < DV / 2; ++e) o[e] *= corr[(e >> 1) & 1];
 
     // P = P_hi + P_lo as bf16 A fragments
     uint32_t phi[BN / 16][4], plo[BN / 16][4];
     split_frags(s, phi, plo);
 
-    // O += P_hi V + P_lo V (64 x D), fp32
+    // O += P_hi V + P_lo V (64 x DV), fp32
     mbar_wait(full_v + 8 * st, ph);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < BN / 16; ++t) {
-      const uint64_t vd = mnmajor<D>(va, C::kPartKV, t);
-      Mma<D>::rs(o, phi[t], vd);
-      Mma<D>::rs(o, plo[t], vd);
+      const uint64_t vd = mnmajor<DV>(va, C::kPartV, t);
+      Mma<DV>::rs(o, phi[t], vd);
+      Mma<DV>::rs(o, plo[t], vd);
     }
     wgmma_commit();
     wgmma_wait();
@@ -500,22 +519,22 @@ __device__ __forceinline__ void consume(
     if (row >= Sq) continue;
     __nv_bfloat16* orow = ob + row * oss + c2;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] / l[r],
                                 o[4 * j + 2 * r + 1] / l[r]);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+template <int D, int DV>
+__global__ void __launch_bounds__(Cfg<D, DV>::kThreads, 1)
     flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, Strides os, int H, int KH, int Sq, int Sk,
     int causal, int window, float scale) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   constexpr int BN = C::kBN;
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the swizzle pattern repeats every 1024 bytes and
@@ -557,39 +576,39 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     // two consumer groups; thread 0 loads Q and the ring's first kStages
     // tiles, then refills the ring between its own tiles
     if (threadIdx.x == 0 && n_tiles > 0) {
-      load_q<D>(&tq, sq, q_full, q0, h, b);
+      load_q<D, DV>(&tq, sq, q_full, q0, h, b);
       for (int i = 0; i < kStages && i < n_tiles; ++i)
-        fill<D>(feed, sk, sv, bar, i);
+        fill<D, DV>(feed, sk, sv, bar, i);
     }
     __syncwarp();
-    consume<D>(sq, sk, sv, bar, threadIdx.x / 128, ob, os.s, lrow, Sq, Sk,
-               q0, k_lo, n_tiles, causal, window, scale, feed);
+    consume<D, DV>(sq, sk, sv, bar, threadIdx.x / 128, ob, os.s, lrow, Sq,
+                   Sk, q0, k_lo, n_tiles, causal, window, scale, feed);
   } else if (threadIdx.x < 128) {
     // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (threadIdx.x == 0 && n_tiles > 0) {
-      load_q<D>(&tq, sq, q_full, q0, h, b);
-      for (int i = 0; i < n_tiles; ++i) fill<D>(feed, sk, sv, bar, i);
+      load_q<D, DV>(&tq, sq, q_full, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) fill<D, DV>(feed, sk, sv, bar, i);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
-    consume<D>(sq, sk, sv, bar, threadIdx.x / 128 - 1, ob, os.s, lrow, Sq, Sk,
-               q0, k_lo, n_tiles, causal, window, scale, feed);
+    consume<D, DV>(sq, sk, sv, bar, threadIdx.x / 128 - 1, ob, os.s, lrow,
+                   Sq, Sk, q0, k_lo, n_tiles, causal, window, scale, feed);
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int H, int KH, int Sq, int Sk, Strides qs,
            Strides ks, Strides vs, Strides os, int causal, int window,
            float scale, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, D, C::kCols, Sq, H, B, qs, kBM) ||
       !make_map(&mk, k, D, C::kCols, Sk, KH, B, ks, C::kBN) ||
-      !make_map(&mv, v, D, C::kCols, Sk, KH, B, vs, C::kBN))
+      !make_map(&mv, v, DV, C::RV::kCols, Sk, KH, B, vs, C::kBN))
     return kErrTensorMap;
-  auto kernel = flash_attention_tc_kernel<D>;
+  auto kernel = flash_attention_tc_kernel<D, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return (int)e;
@@ -602,6 +621,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
+// the (D, DV) instances, as X(D, DV)
+#define FA_INSTANCES(X) X(16, 16) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
+
 bool bad_shape(int B, int H, int KH, int Sk, int window) {
   return KH <= 0 || H % KH != 0 || Sk <= 0 || window < 0 || H > 65535 ||
          B > 65535;
@@ -613,7 +635,8 @@ extern "C" {
 
 // Both entry points launch on ``stream`` and return 0 on success, else a
 // CUDA error code (cudaGetLastError() after the launch) or -1 when the
-// tensor maps cannot be built.  D is 16, 64, 128 or 256.  Strides are in
+// tensor maps cannot be built.  (D, DV) is (16, 16), (64, 64), (128, 128),
+// (256, 256) or (192, 128) (FA_INSTANCES).  Strides are in
 // elements, in the order (b, h, s) for each of q, k, v and out; d is
 // contiguous.  ``lse`` is null or a contiguous fp32 (B,H,Sq) array that
 // receives each query row's log2(sum_j exp2(q.k_j * scale * log2(e))) over
@@ -621,7 +644,7 @@ extern "C" {
 // device pointers.
 
 // f32 q, k, v and out: the CUDA-core kernel.
-int flash_attention_f32_launch(int D, const void* q, const void* k,
+int flash_attention_f32_launch(int D, int DV, const void* q, const void* k,
                                const void* v, void* out, void* lse, int B,
                                int H, int KH, int Sq, int Sk, long long qsb,
                                long long qsh, long long qss, long long ksb,
@@ -637,19 +660,17 @@ int flash_attention_f32_launch(int D, const void* q, const void* k,
   float* l2 = static_cast<float*>(lse);
 #define ARGS q, k, v, out, l2, B, H, KH, Sq, Sk, qs, ks, vs, os, causal, \
              window, scale, s
-  switch (D) {
-    case 16: return (int)launch_f32<16>(ARGS);
-    case 64: return (int)launch_f32<64>(ARGS);
-    case 128: return (int)launch_f32<128>(ARGS);
-    case 256: return (int)launch_f32<256>(ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define CASE(d, dv) \
+  if (D == d && DV == dv) return (int)launch_f32<d, dv>(ARGS);
+  FA_INSTANCES(CASE)
+#undef CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // bf16 q, k, v and out: the tensor-core kernel.  q, k and v are read by
 // TMA: 16-byte aligned bases, strides that are multiples of 16 bytes
 // (the wrapper checks both); out is written in bf16 pairs.
-int flash_attention_tc_launch(int D, const void* q, const void* k,
+int flash_attention_tc_launch(int D, int DV, const void* q, const void* k,
                               const void* v, void* out, void* lse, int B,
                               int H, int KH, int Sq, int Sk, long long qsb,
                               long long qsh, long long qss, long long ksb,
@@ -664,26 +685,24 @@ int flash_attention_tc_launch(int D, const void* q, const void* k,
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   float* l2 = static_cast<float*>(lse);
-  switch (D) {
-    case 16: return tc::launch<16>(ARGS);
-    case 64: return tc::launch<64>(ARGS);
-    case 128: return tc::launch<128>(ARGS);
-    case 256: return tc::launch<256>(ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define CASE(d, dv) \
+  if (D == d && DV == dv) return tc::launch<d, dv>(ARGS);
+  FA_INSTANCES(CASE)
+#undef CASE
+  return (int)cudaErrorInvalidValue;
 #undef ARGS
 }
 
 // Dynamic shared memory of one block, in bytes: the tensor-core kernel
-// (tc != 0) or the f32 one, at head dim D; 0 for a D without an instance.
-int flash_attention_smem(int tc, int D) {
-  switch (D) {
-    case 16: return tc ? tc::Cfg<16>::kSmem : (int)smem_bytes(16);
-    case 64: return tc ? tc::Cfg<64>::kSmem : (int)smem_bytes(64);
-    case 128: return tc ? tc::Cfg<128>::kSmem : (int)smem_bytes(128);
-    case 256: return tc ? tc::Cfg<256>::kSmem : (int)smem_bytes(256);
-    default: return 0;
-  }
+// (tc != 0) or the f32 one, at head dims (D, DV); 0 for a pair without an
+// instance.
+int flash_attention_smem(int tc, int D, int DV) {
+#define CASE(d, dv)                                                  \
+  if (D == d && DV == dv)                                            \
+    return tc ? tc::Cfg<d, dv>::kSmem : (int)smem_bytes(d, dv);
+  FA_INSTANCES(CASE)
+#undef CASE
+  return 0;
 }
 
 const char* flash_attention_error_string(int code) {

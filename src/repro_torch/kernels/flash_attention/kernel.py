@@ -6,9 +6,12 @@ with two kernels chosen by dtype: bf16 runs on the tensor cores (``wgmma``
 fed by TMA, 128-row query tiles against K/V tiles of 128 keys, 64 at
 D = 128 and 256; at D = 256 the CTA is two consumer warpgroups with no
 producer warpgroup; fp32 online softmax; P.V as two bf16 products of P
-split into hi and lo parts), f32 on the CUDA cores in fp32.  D is 16, 64,
-128 or 256 (``HEAD_DIMS``).  The source's header note says what bounds
-each and what the design does about that.  It is built at first use with
+split into hi and lo parts), f32 on the CUDA cores in fp32.  Its
+instances (``INSTANCES``) pair a query/key dim D with a value dim DV:
+(D, D) for D in 16, 64, 128 and 256 (``HEAD_DIMS``), and (192, 128),
+MLA's (deepseek-v2: q/k of nope 128 + rope 64 against v of 128).  The
+source's header note says what bounds each and what the design does
+about that.  It is built at first use with
 ``nvcc`` for ``sm_90a`` (``repro_torch.kernels._nvcc``).
 
 ``flash_attention`` takes its plain version (``ref.flash_attention_ref``)
@@ -36,9 +39,10 @@ f32 on the CUDA cores (32-row tiles at D = 256).  D is one of
 ``BWD_HEAD_DIMS``, the forward's ``HEAD_DIMS``.  Its plain version is
 ``ref.flash_attention_bwd_ref``, taken only when every tensor lies on the
 CPU (where a missing ``lse`` is recomputed); on CUDA tensors ``lse`` is
-required.  ``bwd_launches`` counts each of its kernels' launches
-(``BWD_KERNELS`` a call), ``bwd_window_launches`` those with a sliding
-window.
+required, and a value dim unlike D (MLA's) raises: that backward is
+ROADMAP queue 2 item 10.  ``bwd_launches`` counts each of its kernels'
+launches (``BWD_KERNELS`` a call), ``bwd_window_launches`` those with a
+sliding window.
 """
 from __future__ import annotations
 
@@ -65,8 +69,10 @@ bwd_launches = 0
 bwd_window_launches = 0
 BWD_KERNELS = 3
 
-HEAD_DIMS = (16, 64, 128, 256)   # template instances in the source
-# the backward's instances (flash_attention_bwd.cu): the forward's
+# template instances in the source: (query/key dim D, value dim DV)
+INSTANCES = ((16, 16), (64, 64), (128, 128), (256, 256), (192, 128))
+HEAD_DIMS = tuple(d for d, dv in INSTANCES if d == dv)
+# the backward's instances (flash_attention_bwd.cu): D = DV, HEAD_DIMS
 BWD_HEAD_DIMS = HEAD_DIMS
 _SRC = CSRC / "flash_attention.cu"
 _ENTRY = {torch.float32: "flash_attention_f32_launch",
@@ -106,12 +112,12 @@ def _load():
             lib = ctypes.CDLL(str(build()))
             for name in _ENTRY.values():
                 fn = getattr(lib, name)
-                fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                                + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
                                + [ctypes.c_int] * 2
                                + [ctypes.c_float, ctypes.c_void_p])
                 fn.restype = ctypes.c_int
-            lib.flash_attention_smem.argtypes = [ctypes.c_int] * 2
+            lib.flash_attention_smem.argtypes = [ctypes.c_int] * 3
             lib.flash_attention_smem.restype = ctypes.c_int
             lib.flash_attention_error_string.argtypes = [ctypes.c_int]
             lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -146,10 +152,11 @@ def bwd_smem_bytes(kernel: str, D: int) -> int:
         BWD_KERNEL_KINDS.index(kernel), D)
 
 
-def smem_bytes(tc: bool, D: int) -> int:
+def smem_bytes(tc: bool, D: int, DV: Optional[int] = None) -> int:
     """Dynamic shared memory of one block of the tensor-core (``tc``) or
-    the f32 kernel at head dim D, as the library launches it."""
-    return _load().flash_attention_smem(int(tc), D)
+    the f32 kernel at query/key dim D and value dim DV (default D), as the
+    library launches it."""
+    return _load().flash_attention_smem(int(tc), D, D if DV is None else DV)
 
 
 def tma_strides(shape, strides, itemsize, data_ptr,
@@ -191,17 +198,19 @@ def _check_lse(lse, q):
 
 def _check(q, k, v, out, window):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"q must be (B,H,Sq,D) and k/v (B,KH,Sk,D); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+        raise ValueError(f"q must be (B,H,Sq,D), k (B,KH,Sk,D) and v "
+                         f"(B,KH,Sk,DV); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, Sq, D = q.shape
     _, KH, Sk, _ = k.shape
-    if v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
+    DV = v.shape[3]
+    if (v.shape[:3] != k.shape[:3] or k.shape[0] != B
+            or k.shape[3] != D):
         raise ValueError(f"k/v {tuple(k.shape)} / {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} is not one of the kernel's "
-                         f"instances {HEAD_DIMS}")
+    if (D, DV) not in INSTANCES:
+        raise ValueError(f"head dims (D, DV) = ({D}, {DV}) are not one of "
+                         f"the kernel's instances {INSTANCES}")
     if KH == 0 or H % KH:
         raise ValueError(f"{H} query heads are not a multiple of {KH} kv "
                          "heads")
@@ -215,8 +224,9 @@ def _check(q, k, v, out, window):
         if t.dtype != q.dtype:
             raise TypeError(f"q, k, v and out must share a dtype; got "
                             f"{q.dtype} and {t.dtype}")
-    if out.shape != q.shape:
-        raise ValueError(f"out {tuple(out.shape)} != q {tuple(q.shape)}")
+    if out.shape != (B, H, Sq, DV):
+        raise ValueError(f"out {tuple(out.shape)} != (B,H,Sq,DV) "
+                         f"{(B, H, Sq, DV)}")
     for t in (q, k, v, out):
         if t.device != q.device:
             raise ValueError(f"tensors on {t.device} and {q.device}")
@@ -229,8 +239,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     out: Optional[torch.Tensor] = None,
                     lse: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: (B,H,Sq,D); k/v: (B,KH,Sk,D), f32 or bf16 -> (B,H,Sq,D) in q's
-    dtype (written into ``out`` when given, which may be a strided view).
+    """q: (B,H,Sq,D); k: (B,KH,Sk,D); v: (B,KH,Sk,DV), f32 or bf16 ->
+    (B,H,Sq,DV) in q's dtype (written into ``out`` when given, which may
+    be a strided view); (D, DV) one of ``INSTANCES``, the scale
+    1/sqrt(D).
     ``lse``, when given (contiguous fp32 (B,H,Sq)), receives each row's
     log2-domain log-sum-exp (``ref.attention_lse_ref``), which
     ``flash_attention_bwd`` takes.
@@ -252,13 +264,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     if out is None:
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+        out = q.new_empty(q.shape[:3] + v.shape[3:])
     _check(q, k, v, out, window)
     if lse is not None:
         _check_lse(lse, q)
     if out.numel() == 0:      # nothing to compute: no launch, none counted
         return out
     B, H, Sq, D = q.shape
+    DV = v.shape[3]
     KH, Sk = k.shape[1], k.shape[2]
     tc = q.dtype == torch.bfloat16
     if tc:
@@ -271,7 +284,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, _ENTRY[q.dtype])(
-            D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            D, DV, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H, KH, Sq, Sk,
             *strides, int(bool(causal)), int(window), 1.0 / math.sqrt(D),
             stream)
@@ -326,6 +339,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     for t in (q, k, v))
     dq, dk, dv = out
     _check(q, k, v, o, window)
+    if v.shape[3] != q.shape[3]:
+        raise NotImplementedError(
+            f"flash_attention_bwd has no kernel for value dim {v.shape[3]} "
+            f"!= query dim {q.shape[3]} (MLA's training: ROADMAP queue 2 "
+            "item 10)")
     for t, like in ((do, q), (dq, q), (dk, k), (dv, v)):
         if t.shape != like.shape or t.dtype != q.dtype:
             raise ValueError(f"a gradient tensor {tuple(t.shape)} "

@@ -22,7 +22,7 @@ class _FlashAttentionBSHD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, train):
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+        out = q.new_empty(q.shape[:3] + v.shape[3:])
         B, S, H, _ = q.shape
         lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
                if train else None)
@@ -50,10 +50,10 @@ class _FlashAttentionBSHD(torch.autograd.Function):
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0
                          ) -> torch.Tensor:
-    """Model layout (B,S,H,D)/(B,S,KH,D) -> (B,S,H,D).  The (B,H,S,D) views
-    the kernel takes are strided views of the same memory, and the output
-    is written straight into a (B,S,H,D) tensor: no copy either way.
-    Differentiable with respect to q, k and v."""
+    """Model layout q (B,S,H,D), k (B,S,KH,D), v (B,S,KH,DV) -> (B,S,H,DV).
+    The (B,H,S,D) views the kernel takes are strided views of the same
+    memory, and the output is written straight into a (B,S,H,DV) tensor:
+    no copy either way.  Differentiable with respect to q, k and v."""
     train = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     return _FlashAttentionBSHD.apply(q, k, v, causal, window, train)

@@ -88,15 +88,16 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    """q: (B,H,Sq,D); k/v: (B,KH,Sk,D) with H = KH*G -> (B,H,Sq,D) in q's
-    dtype.  fp32 scores, softmax and P.V."""
+    """q: (B,H,Sq,D); k: (B,KH,Sk,D); v: (B,KH,Sk,DV) with H = KH*G ->
+    (B,H,Sq,DV) in q's dtype (DV may differ from D, as in MLA; the scale
+    is 1/sqrt(D)).  fp32 scores, softmax and P.V."""
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     G = H // KH
     qg = q.float().reshape(B, KH, G, Sq, D) * (1.0 / math.sqrt(D))
     p, denom = _exp_scores(qg, k, _mask(Sq, Sk, causal, window, q.device))
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / denom
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return o.reshape(B, H, Sq, v.shape[3]).to(q.dtype)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
@@ -106,7 +107,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             lse: Optional[torch.Tensor] = None):
     """Gradient of ``flash_attention_ref`` with respect to q, k and v.
 
-    q, o, do: (B,H,Sq,D); k/v: (B,KH,Sk,D); ``o`` is the forward's output
+    q: (B,H,Sq,D); k: (B,KH,Sk,D); v: (B,KH,Sk,DV); o, do: (B,H,Sq,DV)
+    (DV may differ from D); ``o`` is the forward's output
     and ``do`` the gradient arriving at it; ``lse`` (B,H,Sq), the forward's
     log2-domain log-sum-exp, is recomputed (``attention_lse_ref``) when not
     given.  In fp32: P = exp2(s * log2(e) - lse) over the visible keys of
@@ -119,15 +121,16 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     KH, Sk = k.shape[1], k.shape[2]
     G = H // KH
     scale = 1.0 / math.sqrt(D)
+    DV = v.shape[3]
     qf = q.float().reshape(B, KH, G, Sq, D)
-    dof = do.float().reshape(B, KH, G, Sq, D)
+    dof = do.float().reshape(B, KH, G, Sq, DV)
     mask = _mask(Sq, Sk, causal, window, q.device)
     s = _scores(qf * scale, k, mask)
     lse = (_lse2(s, mask) if lse is None
            else lse.float().reshape(B, KH, G, Sq))
     p = torch.where(mask, torch.exp2(s * LOG2E - lse[..., None]),
                     torch.zeros((), device=q.device))
-    delta = (dof * o.float().reshape(B, KH, G, Sq, D)).sum(-1, keepdim=True)
+    delta = (dof * o.float().reshape(B, KH, G, Sq, DV)).sum(-1, keepdim=True)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
     ds = p * (dp - delta)

@@ -1,5 +1,5 @@
-"""GQA attention — counterpart of the dense and paged GQA paths of
-``repro.models.attention``.
+"""GQA and MLA attention — counterpart of the dense and paged GQA paths
+and of the MLA paths of ``repro.models.attention``.
 
 Dense prefill (``gqa_prefill``) goes through ``chunked_attention``, which is
 the flash prefill attention kernel (``repro_torch.kernels.flash_attention``):
@@ -16,7 +16,14 @@ arrays; here the same tensors come back, so callers keep the reference's
 decode over some rows of a larger cache (a stage engine's batch) names
 them with ``rows``: the new K/V lands at those rows in place, and only
 they are read for the attention.
-MLA and cross-attention are not ported (ROADMAP queue 1 item 7).
+
+MLA (deepseek-v2) keeps a compressed cache: the kv latent ``c`` and one
+roped key head ``r`` shared by all heads.  Its prefill (``mla_prefill``)
+attends with q/k of dim nope + rope against v of dim v_dim through the
+same prefill kernel, at a value dim unlike the query dim; its decode
+(``mla_decode``) is the absorbed form in plain torch over the compressed
+cache, as the reference is plain jnp there.  MLA blocks are never paged.
+Cross-attention is not ported (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -39,9 +46,20 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def attn_spec(cfg) -> Dict[str, ParamSpec]:
-    if cfg.mla_kv_lora_rank:
-        raise _not_ported("MLA attention")
     d, h = cfg.d_model, cfg.resolved_head_dim
+    if cfg.mla_kv_lora_rank:
+        r_kv, r_q = cfg.mla_kv_lora_rank, cfg.mla_q_lora_rank
+        nope, rope_d, vd = (cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim,
+                            cfg.mla_v_dim)
+        nh = cfg.num_heads
+        return {
+            "q_down": ParamSpec((d, r_q), ("embed", "lora")),
+            "q_up": ParamSpec((r_q, nh, nope + rope_d),
+                              ("lora", "heads", None)),
+            "kv_down": ParamSpec((d, r_kv + rope_d), ("embed", None)),
+            "kv_up": ParamSpec((r_kv, nh, nope + vd), ("lora", "heads", None)),
+            "o": ParamSpec((nh, vd, d), ("heads", None, "embed")),
+        }
     return {
         "q": ParamSpec((d, cfg.num_heads, h), ("embed", "heads", "head_dim")),
         "k": ParamSpec((d, cfg.num_kv_heads, h), ("embed", "kv_heads", "head_dim")),
@@ -58,7 +76,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, causal: bool = True, window: int = 0,
                       q_chunk: int = 512, kv_chunk: int = 1024,
                       skip_masked_chunks: bool = False) -> torch.Tensor:
-    """q: (B,S,H,D), k/v: (B,S_kv,KH,D) -> (B,S,H,D) in q's dtype.
+    """q/k: (B,S,H,D) / (B,S_kv,KH,D), v: (B,S_kv,KH,DV) -> (B,S,H,DV) in
+    q's dtype (DV != D for MLA).
 
     The reference's online softmax over kv chunks; here the flash prefill
     attention kernel (plain version for CPU tensors), with the Pallas
@@ -70,9 +89,6 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unchanged; the kernel tiles by itself (and always skips tiles no query
     of a tile can see), so they are accepted and not used.
     """
-    if v.shape[-1] != q.shape[-1]:
-        raise _not_ported(f"attention with value dim {v.shape[-1]} != "
-                          f"query dim {q.shape[-1]} (MLA)")
     return flash_attention_bshd(q, k, v, causal=causal, window=window)
 
 
@@ -240,3 +256,99 @@ def gqa_prefill_paged(cfg, params, x, k_pages, v_pages, block_table,
     ctx = ctx.reshape(B, C, H, D)
     out = torch.einsum("bshk,hkd->bsd", ctx, params["o"])
     return out, k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV cache
+# ---------------------------------------------------------------------------
+
+def _mla_q(cfg, params, x, cos, sin):
+    """The query's nope part and its roped part: (B,S,H,nope), (B,S,H,rope)."""
+    nope = cfg.mla_qk_nope_dim
+    q_lat = torch.einsum("bsd,dr->bsr", x, params["q_down"])
+    q = torch.einsum("bsr,rhk->bshk", q_lat, params["q_up"])
+    return q[..., :nope], apply_rope(q[..., nope:], cos, sin)
+
+
+def mla_prefill(cfg, params, x, positions):
+    """Causal MLA over a whole sequence.  x: (B,S,d); positions: (B,S).
+    q/k of dim nope + rope (k's rope part one shared head, broadcast to
+    all H) attend against v of dim v_dim through the prefill kernel.
+    Returns (out, (c_kv (B,S,r), k_rope (B,S,rope))), the cache roped."""
+    B, S, _ = x.shape
+    nope, rope_d = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
+    r = cfg.mla_kv_lora_rank
+    cos, sin = rope_angles(positions, rope_d, cfg.rope_theta)
+    q_nope, q_rope = _mla_q(cfg, params, x, cos, sin)
+    kv = torch.einsum("bsd,dr->bsr", x, params["kv_down"])
+    c_kv, k_rope = kv[..., :r], kv[..., r:]
+    k_up = torch.einsum("bsr,rhk->bshk", c_kv, params["kv_up"])
+    k_nope, v = k_up[..., :nope], k_up[..., nope:]
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)  # one shared head
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope.expand(B, S, cfg.num_heads, rope_d)],
+                      dim=-1)
+    out = chunked_attention(q_cat, k_cat, v, causal=True)
+    out = torch.einsum("bshv,hvd->bsd", out, params["o"])
+    return out, (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_decode(cfg, params, x, cache, cache_pos, *, rows=None):
+    """Absorbed MLA decode of one token.  x: (B,1,d); cache: dict(c, r,
+    pos); cache_pos: (B,).  kv_up's key part is folded into the query and
+    its value part into the output, so scores and context are taken over
+    the compressed cache: fp32 scores scaled by 1/sqrt(nope + rope),
+    probabilities cast to x's dtype before the context, as in the
+    reference.  The new latent, rope key and position are written in place
+    at slot ``min(cache_pos, W-1)``; ``rows`` as in ``gqa_decode``.
+    Returns (out, cache)."""
+    B = x.shape[0]
+    nope, rope_d = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
+    r = cfg.mla_kv_lora_rank
+    cos, sin = rope_angles(cache_pos[:, None], rope_d, cfg.rope_theta)
+    q_nope, q_rope = _mla_q(cfg, params, x, cos, sin)
+    kv = torch.einsum("bsd,dr->bsr", x, params["kv_down"])
+    c_new = kv[..., :r]
+    k_rope_new = apply_rope(kv[..., r:][:, :, None, :], cos, sin)[:, :, 0]
+
+    W = cache["c"].shape[1]
+    pos = cache_pos.long()
+    slot = pos.clamp(max=W - 1)
+    bidx = torch.arange(B, device=x.device) if rows is None else rows
+    cache["c"][bidx, slot] = c_new[:, 0].to(cache["c"].dtype)
+    cache["r"][bidx, slot] = k_rope_new[:, 0].to(cache["r"].dtype)
+    cache["pos"][bidx, slot] = cache_pos.to(cache["pos"].dtype)
+    c_c, r_c, pos_c = ((cache["c"], cache["r"], cache["pos"]) if rows is None
+                       else (cache["c"][rows], cache["r"][rows],
+                             cache["pos"][rows]))
+
+    w_uk = params["kv_up"][..., :nope]           # (r, H, nope)
+    w_uv = params["kv_up"][..., nope:]           # (r, H, vd)
+    q_c = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+    # bf16 products are exact in fp32: the reference's
+    # preferred_element_type=float32
+    s = torch.einsum("bshr,btr->bhst", q_c.float(), c_c.float())
+    s = s + torch.einsum("bshp,btp->bhst", q_rope.float(), r_c.float())
+    s = s / math.sqrt(nope + rope_d)
+    valid = pos_c.long() <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), NEG_INF, device=x.device))
+    attn = torch.softmax(s, dim=-1)
+    ctx_c = torch.einsum("bhst,btr->bshr", attn.to(x.dtype), c_c)
+    ctx = torch.einsum("bshr,rhv->bshv", ctx_c, w_uv)
+    out = torch.einsum("bshv,hvd->bsd", ctx, params["o"])
+    return out, cache
+
+
+def mla_cache_init(cfg, batch: int, max_len: int, dtype, *, device="cuda"):
+    """Zeroed compressed cache of ``max_len`` slots: the kv latent ``c``
+    (B, W, r), the roped key ``r`` (B, W, rope); empty slots hold position
+    int32 max."""
+    return {
+        "c": torch.zeros((batch, max_len, cfg.mla_kv_lora_rank), dtype=dtype,
+                         device=device),
+        "r": torch.zeros((batch, max_len, cfg.mla_qk_rope_dim), dtype=dtype,
+                         device=device),
+        "pos": torch.full((batch, max_len), _INT32_MAX, dtype=torch.int32,
+                          device=device),
+    }

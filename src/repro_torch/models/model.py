@@ -9,13 +9,14 @@ the reference's layout, params (and dense caches) stacked on a leading
 becomes a Python loop over that axis.  Every prefill attention goes through
 ``chunked_attention``, the flash prefill attention kernel.
 
-The port carries decoders whose every block is GQA attention (MHA
+The port carries decoders whose every block is attention: GQA (MHA
 included), full, local or sliding-window (dense caches of a windowed block
-are rings of ``window`` slots), with a dense FFN or a routed MoE:
+are rings of ``window`` slots), or MLA (deepseek-v2: a compressed cache of
+latents and one shared rope key); with a dense FFN or a routed MoE:
 RMSNorm, LayerNorm or the non-parametric LayerNorm; SwiGLU or the plain
 GELU FFN; tied or untied embeddings (smollm, olmo, starcoder2, chameleon,
-gemma3, mixtral).  MLA or SSM blocks and encoder-decoders are not ported
-yet and raise in ``check_ported``.
+gemma3, mixtral, deepseek-v2).  SSM blocks and encoder-decoders are not
+ported yet and raise in ``check_ported``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from ..configs.base import BlockSpec, ModelConfig
-from .attention import attn_spec, gqa_cache_init, gqa_decode, gqa_prefill
+from .attention import (attn_spec, gqa_cache_init, gqa_decode, gqa_prefill,
+                        mla_cache_init, mla_decode, mla_prefill)
 from .common import (ParamSpec, apply_norm, init_params, map_tree,
                      norm_spec, resolve_device, torch_dtype)
 from .moe import ffn_apply, ffn_spec, moe_apply, moe_spec
@@ -34,17 +36,16 @@ from .moe import ffn_apply, ffn_spec, moe_apply, moe_spec
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is in the families the port carries: every
-    block GQA attention, full, local or sliding-window, with a dense FFN
-    or a routed MoE, decoder-only (any norm the reference has, either
-    FFN, tied or untied embeddings)."""
+    block attention, GQA (full, local or sliding-window) or MLA, with a
+    dense FFN or a routed MoE, decoder-only (any norm the reference has,
+    either FFN, tied or untied embeddings)."""
     bad = [b for b in cfg.blocks
            if b.kind != "attn" or b.attn not in ("full", "local", "swa")]
-    if (bad or cfg.mla_kv_lora_rank or cfg.is_encoder_decoder
-            or cfg.d_ff <= 0):
+    if bad or cfg.is_encoder_decoder or cfg.d_ff <= 0:
         raise NotImplementedError(
-            f"{cfg.name}: MLA or SSM blocks and encoder-decoders are not "
-            "ported yet; the port carries GQA decoders (full, local or "
-            "sliding-window attention) with a dense FFN or a routed MoE "
+            f"{cfg.name}: SSM blocks and encoder-decoders are not ported "
+            "yet; the port carries GQA (full, local or sliding-window "
+            "attention) and MLA decoders with a dense FFN or a routed MoE "
             "(ROADMAP queue 1 item 7)")
 
 
@@ -147,10 +148,14 @@ def _mlp(cfg, p, h):
 
 def _apply_block(cfg, b: BlockSpec, p, h, positions, collect_cache=False):
     """One block over a whole sequence.  Returns (h, cache, aux): the
-    block's roped (k, v) when ``collect_cache``, else None, and its MoE
-    load-balance loss (f32 0 for a dense FFN)."""
+    block's roped (k, v) (MLA: (c_kv, k_rope)) when ``collect_cache``,
+    else None, and its MoE load-balance loss (f32 0 for a dense FFN)."""
     hn = apply_norm(cfg, p["norm1"], h)
-    out, cache = gqa_prefill(cfg, p["mix"], hn, positions, window=_window(b))
+    if cfg.mla_kv_lora_rank:
+        out, cache = mla_prefill(cfg, p["mix"], hn, positions)
+    else:
+        out, cache = gqa_prefill(cfg, p["mix"], hn, positions,
+                                 window=_window(b))
     h, moe_aux = _mlp(cfg, p, h + out)
     aux = (moe_aux["aux_loss"] if moe_aux is not None
            else torch.zeros((), dtype=torch.float32, device=h.device))
@@ -252,6 +257,8 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
 def _cache_init_for_block(cfg, b: BlockSpec, batch, max_len, dtype, *,
                           device="cuda"):
+    if cfg.mla_kv_lora_rank:
+        return mla_cache_init(cfg, batch, max_len, dtype, device=device)
     return gqa_cache_init(cfg, batch, max_len, _window(b), dtype,
                           device=device)
 
@@ -295,8 +302,12 @@ def _block_caches(cfg, caches):
 def _apply_block_decode(cfg, b: BlockSpec, p, h, cache, cache_pos,
                         rows=None):
     hn = apply_norm(cfg, p["norm1"], h)
-    out, cache = gqa_decode(cfg, p["mix"], hn, cache, cache_pos,
-                            window=_window(b), rows=rows)
+    if cfg.mla_kv_lora_rank:
+        out, cache = mla_decode(cfg, p["mix"], hn, cache, cache_pos,
+                                rows=rows)
+    else:
+        out, cache = gqa_decode(cfg, p["mix"], hn, cache, cache_pos,
+                                window=_window(b), rows=rows)
     return _mlp(cfg, p, h + out)[0], cache
 
 
@@ -316,9 +327,20 @@ def fill_prefill_cache(cfg: ModelConfig, b: BlockSpec, raw_cache, batch: int,
                        seq_len: int, max_len: int, dtype):
     """One block's prefill (k, v) -> its decode cache (ring/dense buffers
     sized max_len): the last ``min(S, W)`` tokens, the token at absolute
-    position p in slot p % W (windowed) or p."""
-    k, v = raw_cache
+    position p in slot p % W (windowed) or p.  MLA's (c_kv, k_rope) is
+    laid out otherwise, as in the reference: its last ``n = min(S,
+    max_len)`` tokens in slots 0..n-1, with positions S-n..S-1."""
     S = seq_len
+    if cfg.mla_kv_lora_rank:
+        c_kv, k_rope = raw_cache
+        tgt = mla_cache_init(cfg, batch, max_len, dtype, device=c_kv.device)
+        n = min(S, max_len)
+        tgt["c"][:, :n] = c_kv[:, -n:].to(dtype)
+        tgt["r"][:, :n] = k_rope[:, -n:].to(dtype)
+        tgt["pos"][:, :n] = torch.arange(S - n, S, dtype=torch.int32,
+                                         device=c_kv.device)
+        return tgt
+    k, v = raw_cache
     window = _window(b)
     tgt = gqa_cache_init(cfg, batch, max_len, window, dtype, device=k.device)
     W = tgt["k"].shape[1]
@@ -364,7 +386,7 @@ def prefill(cfg: ModelConfig, params, tokens, *,
     caches["super"] = {
         f"pos{i}": {key: torch.stack([per_layer[n_pro + r * pat + i][key]
                                       for r in range(cfg.repeats)])
-                    for key in ("k", "v", "pos")}
+                    for key in per_layer[n_pro + i]}
         for i in range(pat)}
     h = apply_norm(cfg, params["final_norm"], h)
     return _logits(cfg, params, h[:, -1:])[:, 0], caches

@@ -73,9 +73,9 @@ def ffn_spec(cfg, d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
     if kind not in ("gated", "plain"):
         raise ValueError(
             f"mlp_kind {kind!r}: the dense FFN is 'gated' (SwiGLU) or "
-            "'plain' (GELU); MoE layers are BlockSpec(moe=True), and MLA "
-            "or SSM blocks and encoder-decoders are not ported yet (ROADMAP "
-            "queue 1 item 7)")
+            "'plain' (GELU); MoE layers are BlockSpec(moe=True), and SSM "
+            "blocks and encoder-decoders are not ported yet (ROADMAP queue "
+            "1 item 7)")
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
     spec = {

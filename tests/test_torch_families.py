@@ -132,10 +132,13 @@ def _serve_tokens(eng, prompts):
 
 @pytest.mark.parametrize("kind", list(UNPORTED))
 def test_unported_blocks_still_raise(kind):
-    """MLA, SSM blocks and encoder-decoders raise in ``param_specs``.  MoE
+    """SSM blocks and encoder-decoders raise in ``param_specs``.  MoE
     blocks are ported: their specs are the reference's (the router and
     the stacked experts in place of the dense FFN; ``tests/
-    test_torch_mixtral.py`` holds the rest).  Windowed GQA is ported on
+    test_torch_mixtral.py`` holds the rest).  So are MLA blocks (the case
+    keeps the name of the test from when they raised): their specs are
+    the reference's, shapes, axes and init (``tests/
+    test_torch_deepseek.py`` holds the rest).  Windowed GQA is ported on
     the dense and the paged paths: a stack of
     windowed blocks only has nothing to page, so ``PagedEngine`` refuses
     it as the reference's does and the paged ``ClusterRuntime`` gives
@@ -152,6 +155,17 @@ def test_unported_blocks_still_raise(kind):
         assert "ffn" not in block and sorted(block) == sorted(jblock)
         assert {k: s.shape for k, s in block["moe"].items()} == \
             {k: s.shape for k, s in jblock["moe"].items()}
+        return
+    if kind == "mla":
+        cfg = dataclasses.replace(cfg, mla_q_lora_rank=24)
+        block = tmodel.param_specs(cfg)["super"]["pos0"]["mix"]
+        jblock = jmodel.param_specs(cfg)["super"]["pos0"]["mix"]
+        assert sorted(block) == sorted(jblock) == [
+            "kv_down", "kv_up", "o", "q_down", "q_up"]
+        assert {k: (s.shape, s.axes, s.init, s.scale)
+                for k, s in block.items()} == \
+            {k: (s.shape, s.axes, s.init, s.scale)
+             for k, s in jblock.items()}
         return
     if kind != "windowed":
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):

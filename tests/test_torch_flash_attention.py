@@ -142,9 +142,24 @@ def test_chunked_attention_matches_reference(mask, skip):
 
 
 def test_chunked_attention_refuses_mla_value_dim():
-    q = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        chunked_attention(q, q, torch.zeros(1, 4, 2, 8))
+    """The name is kept from when the port refused MLA's value dim; now
+    ``chunked_attention`` takes v of a value dim unlike the query dim, as
+    the reference's does: q/k of deepseek SMOKE's 24 (nope 16 + rope 8)
+    against v of 16, 4 heads, causal, at S across the reference's chunks
+    (q chunks of 64, kv chunks of 128), against the reference's
+    ``chunked_attention``; the output has v's dim."""
+    for S in (5, 40, 130, 300):
+        rng = np.random.RandomState(S)
+        q = rng.randn(2, S, 4, 24).astype(np.float32)
+        k = rng.randn(2, S, 4, 24).astype(np.float32)
+        v = rng.randn(2, S, 4, 16).astype(np.float32)
+        want = j_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         q_chunk=64, kv_chunk=128, causal=True)
+        got = chunked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=True)
+        assert got.shape == (2, S, 4, 16)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_bshd_layout_matches_bhsd():

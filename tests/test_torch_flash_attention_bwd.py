@@ -193,3 +193,23 @@ def test_bwd_wrapper_writes_strided_out_and_handles_empty_q():
                                      o[:, :, :0], hm[3][:, :, :0])
     assert dq.shape == (1, 4, 0, 16)
     assert not dk.any() and not dv.any()
+
+
+@pytest.mark.parametrize("S", [40, 70])
+def test_plain_backward_at_mla_value_dim_matches_jax_vjp(S):
+    """The plain backward at a value dim unlike the query dim (deepseek
+    SMOKE's MLA: q/k of 24, v of 16, 4 heads, causal) against ``jax.vjp``
+    of the reference's ``chunked_attention``, through the model-layout
+    autograd function on CPU tensors.  (On CUDA tensors the backward
+    refuses this value dim: ``tests/test_torch_flash_attention_tc.py``.)"""
+    rng = np.random.RandomState(S)
+    q, k = (rng.randn(2, S, 4, 24).astype(np.float32) for _ in range(2))
+    v, do = (rng.randn(2, S, 4, 16).astype(np.float32) for _ in range(2))
+    want = _jax_vjp(q, k, v, do, True, 0)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = flash_attention_bshd(*leaves, causal=True)
+    assert out.shape == (2, S, 4, 16)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                   err_msg=f"d{name}")

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as k2
+from repro_torch.kernels.flash_attention import ops as k2_ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_ref)
@@ -317,3 +318,66 @@ def test_cuda_tensor_maps_from_a_fresh_thread():
     torch.cuda.synchronize()
     for a, b in zip(res["out"], calls()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_mla_instance_matches_plain(dt):
+    """On the card: the (D, DV) = (192, 128) instance (deepseek-v2's MLA:
+    q/k of nope 128 + rope 64, v of 128; H = KH = 128 and a narrow G = 4)
+    against its plain version, causal across the 128-row query tiles and
+    64-key tiles, bidirectional, a window, Sq != Sk, and v a strided slice
+    of a wider tensor in the model layout (MLA's k_up[..., nope:]): f32
+    within 1e-5, bf16 each element within 2**-7 x |plain| + 1e-5; one
+    launch a call (bf16 on the tensor cores); the output has v's dim."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def within(out, ref):
+        diff = (out.float() - ref.float()).abs()
+        limit = (1e-5 if dtype == torch.float32
+                 else 2.0 ** -7 * ref.float().abs() + 1e-5)
+        assert (diff <= limit).all(), diff.max().item()
+
+    for (H, KH, Sq, Sk), mask in (((8, 2, 129, 129), MASKS["causal"]),
+                                  ((8, 2, 300, 300), MASKS["window100"]),
+                                  ((8, 2, 65, 65), MASKS["bidirectional"]),
+                                  ((128, 128, 511, 511), MASKS["causal"]),
+                                  ((128, 128, 100, 300), MASKS["causal"])):
+        q, k, v = rnd(1, H, Sq, 192), rnd(1, KH, Sk, 192), rnd(1, KH, Sk, 128)
+        before, tc_before = k2.launches, k2.tc_launches
+        out = flash_attention(q, k, v, **mask)
+        assert out.shape == (1, H, Sq, 128)
+        assert k2.launches == before + 1
+        assert k2.tc_launches == tc_before + (dtype == torch.bfloat16)
+        within(out, flash_attention_ref(q, k, v, **mask))
+    k_up = rnd(1, 200, 16, 256)
+    q, k = rnd(1, 200, 16, 192), rnd(1, 200, 16, 192)
+    out = k2_ops.flash_attention_bshd(q, k, k_up[..., 128:])
+    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              k_up[..., 128:].transpose(1, 2))
+    within(out, ref.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_refuses_mla_value_dim():
+    """K2's backward has no kernel for a value dim unlike the query dim:
+    on CUDA tensors it raises, naming the ROADMAP item that will add it,
+    and so does the model-layout autograd function's backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q, k = (torch.randn(1, 4, 64, 192, device="cuda") for _ in range(2))
+    v = torch.randn(1, 4, 64, 128, device="cuda")
+    lse = torch.empty(q.shape[:3], device="cuda")
+    o = flash_attention(q, k, v, lse=lse)
+    with pytest.raises(NotImplementedError, match="queue 2 item 10"):
+        k2.flash_attention_bwd(q, k, v, o, torch.randn_like(o), lse=lse)
+    leaves = [t.transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
+    out = k2_ops.flash_attention_bshd(*leaves)
+    with pytest.raises(NotImplementedError, match="queue 2 item 10"):
+        out.sum().backward()

@@ -64,7 +64,8 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
               "repro_torch.configs.starcoder2_7b",
               "repro_torch.configs.chameleon_34b",
               "repro_torch.configs.gemma3_12b",
-              "repro_torch.configs.mixtral_8x22b"):
+              "repro_torch.configs.mixtral_8x22b",
+              "repro_torch.configs.deepseek_v2_236b"):
         assert m in mods, res.stdout
 
 
